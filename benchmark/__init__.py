@@ -2,7 +2,7 @@
 
 Reference counterparts (SURVEY §2.8):
   corpus.py   ← benchUtils.js synthetic corpus + benchSilesia.js corpus
-  sysinfo.py  ← sysInfo.js banner (plus TPU topology)
+  sysinfo.py  ← sysInfo.js banner (plus the device list)
   runner.py   ← benchRunner.js + benchUtils.js measurement engine
   profiler.py ← profile.compression.js / profile.decompression.js
                 (jax.profiler traces instead of V8 .cpuprofile)

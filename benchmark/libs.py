@@ -41,14 +41,14 @@ def _build_registry() -> Dict[str, LibAdapter]:
         if a is not None:
             adapters[a.name] = a
 
-    def divortio_tpu():
+    def divortio_lz4():
         import numpy as np
 
-        import divortio_lz4_tpu as lz4
+        import divortio_lz4 as lz4
         cfg = lz4.FrameConfig(block_size=4 * 1024 * 1024,
                               block_independence=True)
         return LibAdapter(
-            "divortio-tpu", "divortio_lz4_tpu", "python+c+++jax",
+            "divortio-lz4", "divortio_lz4", "python+c+++jax",
             lambda b: bytes(lz4.compress(np.frombuffer(b, np.uint8),
                                          config=cfg)),
             lambda b: bytes(lz4.decompress(np.frombuffer(b, np.uint8))))
@@ -90,7 +90,7 @@ def _build_registry() -> Dict[str, LibAdapter]:
         return LibAdapter("snappy", "python-snappy", "c",
                           snappy.compress, snappy.decompress)
 
-    add(_try("divortio-tpu", divortio_tpu))
+    add(_try("divortio-lz4", divortio_lz4))
     add(_try("gzip", gzip6))
     add(_try("zstd", zstd3))
     add(_try("bzip2", bz2_9))
@@ -120,7 +120,7 @@ def run_interop_check() -> dict:
     """
     import numpy as np
 
-    import divortio_lz4_tpu as lz4t
+    import divortio_lz4 as lz4t
 
     payload = bytes(np.random.default_rng(7).integers(
         65, 91, 100_000, dtype=np.uint8)) + b"interop " * 5000

@@ -2,13 +2,13 @@
 
 Reference counterpart: benchmark/src/profile/profile.compression.js:8-49,
 which wraps a fixed-duration workload in V8's inspector profiler and writes a
-Chrome-loadable .cpuprofile. The TPU equivalent wraps the device kernels in
+Chrome-loadable .cpuprofile. The device equivalent wraps the kernels in
 jax.profiler and writes a TensorBoard/Perfetto-loadable trace directory
 (SURVEY §5.1).
 
 Usage:
     python -m benchmark.profiler [--mode compress|decompress|roundtrip]
-                                 [--out /tmp/lz4tpu_trace] [--seconds 3]
+                                 [--out .trace] [--seconds 3]
 """
 
 from __future__ import annotations
@@ -20,15 +20,15 @@ import time
 import numpy as np
 
 
-def profile(mode: str = "roundtrip", out_dir: str = "/tmp/lz4tpu_trace",
+def profile(mode: str = "roundtrip", out_dir: str = ".trace",
             seconds: float = 3.0, size: int = 1_000_000,
             block_size: int = 65536) -> str:
     import jax
     import jax.numpy as jnp
 
-    from divortio_lz4_tpu.constants import WINDOW_SIZE, block_bound
-    from divortio_lz4_tpu.ops.decode_xla import decode_blocks_batch
-    from divortio_lz4_tpu.ops.encode_xla import encode_blocks_batch
+    from divortio_lz4.constants import WINDOW_SIZE, block_bound
+    from divortio_lz4.ops.decode_xla import decode_blocks_batch
+    from divortio_lz4.ops.encode_xla import encode_blocks_batch
     from .corpus import synthetic_json
 
     data = synthetic_json(size)
@@ -70,7 +70,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="roundtrip",
                     choices=["compress", "decompress", "roundtrip"])
-    ap.add_argument("--out", default="/tmp/lz4tpu_trace")
+    ap.add_argument("--out", default=".trace")
     ap.add_argument("--seconds", type=float, default=3.0)
     args = ap.parse_args()
     profile(args.mode, args.out, args.seconds)

@@ -57,7 +57,7 @@ def measure(fn: Callable[[], object], nbytes: int) -> dict:
 
 def _paths(block_size: int):
     """Named (compress_fn, decompress_fn) builders over a corpus."""
-    import divortio_lz4_tpu as lz4
+    import divortio_lz4 as lz4
 
     cfg = lz4.FrameConfig(block_size=block_size, block_independence=True)
 
@@ -71,32 +71,29 @@ def _paths(block_size: int):
         db = bytes(data)
         step = max(len(db) // 8, 1)
         chunks = [db[i: i + step] for i in range(0, len(db), step)]
-        from divortio_lz4_tpu.stream import CompressStream, DecompressStream
+        from divortio_lz4.stream import CompressStream, DecompressStream
         frame = b"".join(CompressStream(cfg).pipe(chunks))
         fch = [frame[i: i + step] for i in range(0, len(frame), step)]
         return (lambda: b"".join(CompressStream(cfg).pipe(chunks)),
                 lambda: b"".join(DecompressStream().pipe(fch)), len(frame))
 
     def worker(data):
-        from divortio_lz4_tpu.worker import LZ4Worker
+        from divortio_lz4.worker import LZ4Worker
         frame = np.array(LZ4Worker.compress(data, config=cfg).result())
         return (lambda: LZ4Worker.compress(data, config=cfg).result(),
                 lambda: LZ4Worker.decompress(frame).result(), len(frame))
 
     def device(data):
-        # Device engines chosen for this link: hybrid encoder + pallas
-        # decoder (the split engines are kernel-fastest but ship ~2x the
-        # wire; see bench.py bench_device_frames)
-        # (fall back internally where a shape is unsupported).
-        from divortio_lz4_tpu.parallel import (device_compress_frame,
+        # The split engines: chain-direct encode, region decode kernel.
+        from divortio_lz4.parallel import (device_compress_frame,
                                                device_decompress_frame)
-        frame = np.array(device_compress_frame(data, cfg, engine="hybrid"))
-        return (lambda: device_compress_frame(data, cfg, engine="hybrid"),
-                lambda: device_decompress_frame(frame, engine="pallas"),
+        frame = np.array(device_compress_frame(data, cfg, engine="split"))
+        return (lambda: device_compress_frame(data, cfg, engine="split"),
+                lambda: device_decompress_frame(frame, engine="split"),
                 len(frame))
 
     def device_xla(data):
-        from divortio_lz4_tpu.parallel import (device_compress_frame,
+        from divortio_lz4.parallel import (device_compress_frame,
                                                device_decompress_frame)
         frame = np.array(device_compress_frame(data, cfg))
         return (lambda: device_compress_frame(data, cfg),
@@ -119,7 +116,7 @@ def _paths(block_size: int):
         return lib_path
 
     for name, adapter in registry().items():
-        if name != "divortio-tpu":  # our own paths are the host/device rows
+        if name != "divortio-lz4":  # our own paths are the host/device rows
             paths[name] = make_lib_path(adapter)
     return paths
 

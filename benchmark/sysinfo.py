@@ -1,7 +1,7 @@
 """System banner — runtime/OS/CPU/memory/accelerator topology.
 
 Reference counterpart: benchmark/src/base/sysInfo.js:4-26, extended with the
-TPU topology the reference has no concept of.
+accelerator topology the reference has no concept of.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def banner() -> str:
     acc = info.get("accelerator", {})
     acc_s = (f"{acc.get('platform')}/{acc.get('device_kind')} "
              f"x{acc.get('local_devices')}" if isinstance(acc, dict) else acc)
-    return (f"divortio_lz4_tpu bench | py {info['python']} | "
+    return (f"divortio_lz4 bench | py {info['python']} | "
             f"{info.get('cpu', info['machine'])} x{info['cpus']} | "
             f"{info.get('mem_gb', '?')} GB | {acc_s}")
 

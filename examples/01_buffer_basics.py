@@ -10,7 +10,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import divortio_lz4_tpu as lz4
+import divortio_lz4 as lz4
 
 # --- bytes ---
 data = b"The quick brown fox jumps over the lazy dog. " * 1000

@@ -11,7 +11,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import divortio_lz4_tpu as lz4
+import divortio_lz4 as lz4
 
 # Typical use: many small messages share structure; a dictionary seeds the
 # 64KB window so each message compresses against shared context.

@@ -11,9 +11,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.ops.block_ref import new_hash_table
+import divortio_lz4 as lz4
+from divortio_lz4.constants import block_bound
+from divortio_lz4.ops.block_ref import new_hash_table
 
 data = np.frombuffer(b"raw block payload " * 500, np.uint8)
 

@@ -9,7 +9,7 @@ Python analog, feature for feature:
     python examples/07_http_server.py [port]            # plain HTTP
     python examples/07_http_server.py [port] --tls      # self-signed TLS
     curl -sk https://localhost:8654/sample.lz4 | \
-        python -m divortio_lz4_tpu decompress /dev/stdin -o -
+        python -m divortio_lz4 decompress /dev/stdin -o -
 """
 
 import os
@@ -21,7 +21,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import divortio_lz4_tpu as lz4
+import divortio_lz4 as lz4
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -23,7 +23,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import divortio_lz4_tpu as lz4
+import divortio_lz4 as lz4
 
 PAYLOAD = (b"event,ts,value\n"
            + b"".join(b"sensor-%d,17000%d,%d\n" % (i % 7, i, i * 37 % 1000)

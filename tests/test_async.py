@@ -6,15 +6,15 @@ import asyncio
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
-from divortio_lz4_tpu.aio import (
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4.aio import (
     compress_async,
     create_async_compress_stream,
     create_async_decompress_stream,
     decompress_async,
 )
-from divortio_lz4_tpu.scheduler import Scheduler
-from divortio_lz4_tpu.worker import LZ4Worker
+from divortio_lz4.scheduler import Scheduler
+from divortio_lz4.worker import LZ4Worker
 
 
 def test_async_oneshot_roundtrip(compressible):
@@ -128,7 +128,7 @@ def test_worker_map_compress_parallel(compressible):
 def test_worker_process_pool_roundtrip():
     """Process-pool offload: real parallelism on any backend (the
     structured-clone postMessage analog)."""
-    from divortio_lz4_tpu.worker import LZ4Worker
+    from divortio_lz4.worker import LZ4Worker
 
     data = np.frombuffer(b"process pool payload " * 3000, np.uint8)
     try:

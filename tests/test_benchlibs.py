@@ -7,7 +7,7 @@ from benchmark.libs import registry, run_interop_check
 
 def test_registry_has_environment_codecs():
     reg = registry()
-    assert "divortio-tpu" in reg and "gzip" in reg and "zstd" in reg
+    assert "divortio-lz4" in reg and "gzip" in reg and "zstd" in reg
     payload = b"registry adapter payload " * 400
     for name, a in reg.items():
         comp = a.compress(payload)

@@ -1,31 +1,25 @@
-"""Big-block (256 KB - 4 MB) device codec: segmented hybrid encode + piece-
-scan Pallas decode (parallel/bigblock.py). Interpret mode on CPU; the
-compiled path is covered by bench.py / __graft_entry__ on real TPU.
+"""Big-block (256 KB - 4 MB) device codec: segmented chain-direct encode
+(parallel/bigblock.py) and the region decode kernel. Interpret mode on
+CPU; the gpu marker runs the compiled kernel.
 
 Cross-validation style per SURVEY §4: compress with one tier, decompress
 with another, in both directions, against the reference-identical host
 tier. Reference parity targets: bufferCompress.js:100 (4 MB default block
-size), blockDecompress.js:55-272 (sequence semantics the scanner mirrors).
+size), blockDecompress.js:55-272.
 """
 
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.parallel.bigblock import (
-    PIECE_CAP,
-    _scan_pieces_py,
-    compress_frame_big,
-    decompress_frame_big,
-    scan_pieces,
-)
-from divortio_lz4_tpu.parallel.device import (
+import divortio_lz4 as lz4
+from divortio_lz4.parallel.bigblock import SEG, compress_frame_big
+from divortio_lz4.parallel.device import (
     device_compress_frame,
     device_decompress_frame,
     parse_block_index,
 )
 
-from tests.conftest import make_compressible
+from conftest import make_compressible
 
 BS = 262144  # smallest big-block tier; 1 MB/4 MB differ only in count
 
@@ -42,30 +36,38 @@ def mixed_corpus(n: int, seed: int = 3) -> np.ndarray:
     return out
 
 
-# ---------------------------------------------------------------- scanner --
+# --------------------------------------------------------------- segments --
 
-def test_scanner_matches_python_oracle():
-    raw = mixed_corpus(BS)
-    blk = np.asarray(lz4.compress_raw(raw))
-    nat = scan_pieces(blk)
-    ref = _scan_pieces_py(blk, 65536)
-    for a, b in zip(nat, ref):
-        assert np.array_equal(a, b)
-    # pieces tile the wire and the output exactly
-    wo, wl, ol = nat
-    assert wo[0] == 0 and wo[-1] + wl[-1] == len(blk)
-    assert np.array_equal(wo[1:], wo[:-1] + wl[:-1])
-    assert int(ol.sum()) == len(raw)
-    assert all(int(x) >= 65536 for x in ol[:-1])
+def test_segment_rows_cover_blocks_with_history():
+    """Every 64 KB segment row carries its payload after a 64 KB history
+    slice that stops at its block's start (independent) or reaches into
+    the previous block (linked)."""
+    from divortio_lz4.parallel.bigblock import _segment_rows
+
+    raw = mixed_corpus(3 * SEG + 5000)
+    for linked in (False, True):
+        work, lens, hist_start, seg_rows = _segment_rows(raw, 2 * SEG,
+                                                         None, linked)
+        assert [len(r) for r in seg_rows] == [2, 2]
+        assert int(lens.sum()) == len(raw)
+        # second segment of block 0 sees the first as history
+        np.testing.assert_array_equal(work[1, :SEG], raw[:SEG])
+        # first segment of block 1: history only when linked
+        assert hist_start[2] == (0 if linked else SEG)
 
 
-def test_scanner_malformed_taxonomy():
-    # truncated 0xFF literal-length run
-    with pytest.raises(ValueError, match="Malformed"):
-        scan_pieces(np.array([0xF0, 255, 255], np.uint8))
-    # zero offset
-    with pytest.raises(ValueError, match="Offset 0"):
-        scan_pieces(np.array([0x11, ord("a"), 0, 0], np.uint8))
+def test_big_encode_segment_splice_tiles_block():
+    """The spliced block stream decodes to exactly its block."""
+    raw = mixed_corpus(4 * SEG, seed=41)
+    cfg = lz4.FrameConfig(block_size=4 * SEG, block_independence=True)
+    frame = compress_frame_big(raw, cfg)
+    hdr, blocks, _ = parse_block_index(np.asarray(frame))
+    assert len(blocks) == 1 and not blocks[0][2]
+    off, size, _ = blocks[0]
+    out = np.empty(4 * SEG, np.uint8)
+    assert lz4.decompress_raw(np.asarray(frame)[off: off + size], out) \
+        == len(raw)
+    np.testing.assert_array_equal(out, raw)
 
 
 # ----------------------------------------------------------------- encode --
@@ -87,7 +89,7 @@ def test_big_encode_host_decodes(independent):
 def test_big_encode_routing_via_device_compress_frame():
     raw = mixed_corpus(400000)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
-    frame = device_compress_frame(raw, cfg, engine="hybrid")
+    frame = device_compress_frame(raw, cfg, engine="split")
     assert np.array_equal(lz4.decompress(frame), raw)
 
 
@@ -152,16 +154,11 @@ def test_big_decode_stored_blocks(rng):
 
 
 def test_big_decode_giant_rle_falls_back():
-    # A 1 MB zero block encodes to a single monster sequence whose output
-    # exceeds PIECE_CAP: decompress_frame_big declines (None) and the
-    # device path falls back to the XLA kernels, still bit-exact.
+    # A 1 MB zero block encodes to a single monster sequence; the region
+    # kernel decodes it like any other block.
     raw = np.zeros(1048576 + 1000, np.uint8)
     cfg = lz4.FrameConfig(block_size=1048576, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    hdr, blocks, _ = parse_block_index(frame)
-    wo, wl, ol = scan_pieces(frame[blocks[0][0]: blocks[0][0] + blocks[0][1]])
-    assert int(ol.max()) > PIECE_CAP
-    assert decompress_frame_big(frame, blocks, hdr, None) is None
     out = device_decompress_frame(frame, engine="pallas")
     assert np.array_equal(out, raw)
 
@@ -169,22 +166,15 @@ def test_big_decode_giant_rle_falls_back():
 def test_big_roundtrip_device_both_directions():
     raw = mixed_corpus(550000, seed=13)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
-    frame = device_compress_frame(raw, cfg, engine="hybrid")
+    frame = device_compress_frame(raw, cfg, engine="split")
     out = device_decompress_frame(frame, engine="pallas")
     assert np.array_equal(out, raw)
 
 
-@pytest.mark.skipif(
-    __import__("jax").default_backend() != "tpu",
-    reason="real-TPU parity marker — runs only on hardware; the round-3 "
-           "BENCH device-bigblock tier exercises this path on every "
-           "driver run (4 MB blocks encode 0.903x ratio, decode "
-           "bit-exact, measured on v5e)")
-def test_bigblock_real_tpu_parity(compressible):
-    import divortio_lz4_tpu as lz4
-    from divortio_lz4_tpu.parallel.bigblock import compress_frame_big
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
-
+@pytest.mark.gpu
+def test_bigblock_gpu_parity(compressible):
+    """The reference's default 4 MB blocks on the card: the segmented
+    encoder holds the ratio gate and the compiled kernel decodes exact."""
     corpus = np.asarray(compressible(4_500_000))
     cfg = lz4.FrameConfig(block_size=4194304, block_independence=True)
     frame = compress_frame_big(corpus, cfg)
@@ -194,15 +184,14 @@ def test_bigblock_real_tpu_parity(compressible):
 
 
 def test_bigblock_multiframe_pipelined_roundtrip(compressible):
-    """compress_frames_big / the wave-deferred decompress_frames path
-    (round 5): N big-block frames queue every chain dispatch before one
-    stacked fetch, and every wave kernel before one flattened fetch —
-    byte-identical to the serial per-frame path."""
+    """compress_frames_big / decompress_frames: N big-block frames queue
+    every device dispatch before the first fetch — byte-identical to the
+    serial per-frame path."""
     import numpy as np
 
-    import divortio_lz4_tpu as lz4
-    from divortio_lz4_tpu.frame import decompress_frame
-    from divortio_lz4_tpu.parallel.device import (
+    import divortio_lz4 as lz4
+    from divortio_lz4.frame import decompress_frame
+    from divortio_lz4.parallel.device import (
         device_compress_frame, device_compress_frames,
         device_decompress_frames)
 

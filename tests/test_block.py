@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import compress_raw, decompress_raw
-from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.ops.block_ref import new_hash_table
+from divortio_lz4 import compress_raw, decompress_raw
+from divortio_lz4.constants import block_bound
+from divortio_lz4.ops.block_ref import new_hash_table
 
 
 def test_raw_roundtrip_random(rng):
@@ -80,7 +80,7 @@ def test_raw_dictionary_backref():
     combined = np.concatenate([dict_bytes, payload])
     table = new_hash_table()
     out = np.empty(block_bound(len(payload)), dtype=np.uint8)
-    from divortio_lz4_tpu.backends import get_backend
+    from divortio_lz4.backends import get_backend
     be = get_backend()
     be.warm_table(table, combined, len(dict_bytes))
     written = be.compress_block(combined, out, len(dict_bytes), len(payload),

@@ -11,8 +11,8 @@ import pickle
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, XXHash32, decompress_frame, xxhash32
-from divortio_lz4_tpu.stream import LZ4Decoder, LZ4Encoder
+from divortio_lz4 import FrameConfig, XXHash32, decompress_frame, xxhash32
+from divortio_lz4.stream import LZ4Decoder, LZ4Encoder
 
 
 def collect(parts):
@@ -50,7 +50,7 @@ def test_encoder_checkpoint_mid_stream(compressible):
 
 
 def test_decoder_checkpoint_mid_frame(compressible):
-    from divortio_lz4_tpu import compress_frame
+    from divortio_lz4 import compress_frame
     data = bytes(compressible(300_000))
     frame = bytes(compress_frame(
         data, config=FrameConfig(block_size=65536, content_checksum=True)))
@@ -66,7 +66,7 @@ def test_decoder_checkpoint_mid_frame(compressible):
 
 
 def test_decoder_checkpoint_preserves_dictionary(compressible):
-    from divortio_lz4_tpu import compress_frame
+    from divortio_lz4 import compress_frame
     data = np.asarray(compressible(120_000))
     d = np.array(data[:5000])
     frame = bytes(compress_frame(data, dictionary=d,

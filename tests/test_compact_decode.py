@@ -1,21 +1,16 @@
-"""Round-5 compact-stream decode paths: single-device dispatch, the
-sharded per-shard-stream variant, and hostile-record robustness.
+"""Batched decode of independent blocks through the region kernel
+(ops/gpu_decode), single-device and sharded over a mesh, on mixed-density
+corpora, plus hostile-record containment."""
 
-The compact kernel (ops/pallas_split_decode.decode_blocks_wire_compact)
-keeps records in one flat SMEM-resident scalar-prefetch array with
-per-(step, way) bases; these tests pin its production wrappers against
-the host decoder on mixed-density corpora (the shapes where the padded
-form lost its interleave)."""
-
+import jax.numpy as jnp
 import numpy as np
-import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.config import FrameConfig
-from divortio_lz4_tpu.frame import decompress_frame
-from divortio_lz4_tpu.ops.pallas_split_decode import (
-    decode_blocks_wire_compact, dispatch_compact, parse_wire_raw,
-    stage_compact)
+import divortio_lz4 as lz4
+from divortio_lz4.config import FrameConfig
+from divortio_lz4.frame import decompress_frame
+from divortio_lz4.ops.gpu_decode import (
+    Plan, decode_blocks, decode_regions, padded_inputs, plan_regions)
+from divortio_lz4.parallel.device import parse_block_index
 
 
 def _mixed_blocks(bs=16384, nb=20, seed=3):
@@ -40,22 +35,12 @@ def test_dispatch_compact_mixed_density_bit_exact():
     bs = 16384
     blocks = _mixed_blocks(bs)
     comps = [np.asarray(lz4.compress_raw(p)) for p in blocks]
-    wire, recs_l, counts, out_lens, _ = parse_wire_raw(
-        [(c, False) for c in comps], bs)
-    pend = dispatch_compact(wire, recs_l, counts, out_lens,
-                            np.array([len(c) for c in comps]), bs, True)
-    res = [None] * len(blocks)
-    for sel_p, out in pend:
-        o = np.asarray(out)
-        for k, b in enumerate(sel_p):
-            if res[b] is None:
-                res[b] = o[k][: int(out_lens[b])]
-    for i, p in enumerate(blocks):
-        np.testing.assert_array_equal(res[i], p)
+    for got, p in zip(decode_blocks(comps, bs), blocks):
+        np.testing.assert_array_equal(got, p)
 
 
 def test_sharded_compact_roundtrip_mixed_density():
-    from divortio_lz4_tpu.parallel.sharding import ShardedCodec, make_mesh
+    from divortio_lz4.parallel.sharding import ShardedCodec, make_mesh
     plain = np.concatenate(_mixed_blocks(16384, 20))
     for ndev in (2, 8):
         codec = ShardedCodec(make_mesh(ndev),
@@ -71,7 +56,7 @@ def test_sharded_compact_roundtrip_mixed_density():
 
 
 def test_sharded_compact_dictionary():
-    from divortio_lz4_tpu.parallel.sharding import ShardedCodec, make_mesh
+    from divortio_lz4.parallel.sharding import ShardedCodec, make_mesh
     plain = np.concatenate(_mixed_blocks(16384, 12, seed=9))
     d = plain[:9000]
     cfg = FrameConfig(block_size=16384, block_independence=True)
@@ -82,91 +67,65 @@ def test_sharded_compact_dictionary():
 
 
 def test_stage_sharded_compact_shard_streams_are_local():
-    """Every shard's bases index only its own stream; trips cover its own
-    groups — the invariants the SPMD dispatch relies on."""
-    from divortio_lz4_tpu.parallel.device import stage_sharded_compact
+    """Each shard's staged records index only its own wire slice and its
+    regions only its own output — the invariants the SPMD dispatch relies
+    on — and the shards sit on distinct devices."""
+    from divortio_lz4.parallel.sharding import ShardedCodec, make_mesh
     bs = 16384
-    blocks = _mixed_blocks(bs, 24, seed=5)
-    comps = [np.asarray(lz4.compress_raw(p)) for p in blocks]
-    wire, recs_l, counts, out_lens, _ = parse_wire_raw(
-        [(c, False) for c in comps], bs)
-    staged = stage_sharded_compact(
-        wire, recs_l, counts, out_lens,
-        np.array([len(c) for c in comps]), bs, 4)
-    for stripe, ways, pair, wire_rows, words2d, bases2d, trips2d, _ \
-            in staged:
-        ndev, L = words2d.shape
-        assert ndev == 4
-        rpd = len(stripe) // ndev
-        assert bases2d.shape == (ndev, rpd)
-        assert trips2d.shape == (ndev, rpd // ways)
-        for d in range(ndev):
-            # bases are word offsets LOCAL to shard d's stream
-            assert (bases2d[d] >= 0).all() and (bases2d[d] < L).all()
-            # a row's stream (2 * pair-rounded group trip words) fits
-            for g in range(rpd // ways):
-                tp = int(trips2d[d, g]) * pair
-                for r in range(ways):
-                    base = int(bases2d[d, g * ways + r])
-                    assert base + 2 * tp <= L
+    plain = np.concatenate(_mixed_blocks(bs, 24, seed=5))
+    cfg = FrameConfig(block_size=bs, block_independence=True)
+    frame = np.asarray(lz4.compress(plain, config=cfg))
+    header, blocks, _ = parse_block_index(frame)
+    codec = ShardedCodec(make_mesh(4), cfg, engine="best")
+    (meta, recs, wire, hist), totals, out_len = codec.stage_decode(
+        frame, blocks, header)
+    assert sum(totals) == len(plain)
+    assert len({s.device for s in wire.addressable_shards}) == 4
+    meta, recs, wire = (np.asarray(x) for x in (meta, recs, wire))
+    assert meta.shape[0] == recs.shape[0] == wire.shape[0] == 4
+    for d in range(4):
+        m = meta[d][meta[d][:, 1] > 0]
+        assert (m[:, 0] + m[:, 1] <= recs.shape[1]).all()
+        assert (m[:, 2] + m[:, 3] <= totals[d]).all()
+        used = np.concatenate([np.arange(a, a + n) for a, n in m[:, :2]])
+        assert (recs[d][used, 0] < wire.shape[1]).all()
 
 
 def test_stage_compact_dense_group_respects_smem_budget():
-    """A batch of DENSE 64 KB blocks (~15k records each) must not stage a
-    single group past SMEM_COMPACT_WORDS: one 8-way group of such rows
-    costs ~960 KB resident — past the validated envelope — so the chunk
-    shrinks its own ways instead (round-5 review find). Decode stays
-    bit-exact at the shrunken interleave."""
-    from divortio_lz4_tpu.ops.pallas_split_decode import (
-        SMEM_COMPACT_WORDS, _group_words, stage_compact)
+    """Dense 64 KB blocks (~15k records each — the densest class a block
+    can hold) decode bit-exact in one dispatch."""
     rng = np.random.default_rng(7)
     bs = 65536
-    blocks = [rng.integers(0, 4, bs).astype(np.uint8) for _ in range(8)]
+    blocks = [rng.integers(0, 4, bs).astype(np.uint8) for _ in range(4)]
     comps = [np.asarray(lz4.compress_raw(p)) for p in blocks]
     assert all(len(c) < bs for c in comps)
-    wire, recs_l, counts, out_lens, _ = parse_wire_raw(
-        [(c, False) for c in comps], bs)
-    assert counts.min() > 8192  # genuinely dense rows
-    staged = stage_compact(wire, recs_l, counts, out_lens,
-                           np.array([len(c) for c in comps]), bs)
-    for sel_p, ways, pair, dw, dwd, db, dt, _ in staged:
-        assert ways < 8  # the guard shrank the interleave
-        # every chunk's unbucketed stream stays within budget
-        total = 0
-        for g in range(len(sel_p) // ways):
-            gmax = int(counts[sel_p[g * ways:(g + 1) * ways]].max())
-            total += _group_words(gmax, ways, pair)
-        assert total <= SMEM_COMPACT_WORDS, (total, ways)
-    # and the shrunken dispatch still decodes bit-exact
-    pend = dispatch_compact(wire, recs_l, counts, out_lens,
-                            np.array([len(c) for c in comps]), bs, True)
-    res = [None] * len(blocks)
-    for sel_p, out in pend:
-        o = np.asarray(out)
-        for k, b in enumerate(sel_p):
-            if res[b] is None:
-                res[b] = o[k][: int(out_lens[b])]
-    for i, p in enumerate(blocks):
-        np.testing.assert_array_equal(res[i], p)
+    for got, p in zip(decode_blocks(comps, bs), blocks):
+        np.testing.assert_array_equal(got, p)
 
 
 def test_compact_kernel_hostile_records_stay_bounded():
-    """Garbage record words (valid bases/trips — those are internal, the
-    attacker controls only wire bytes) must not corrupt OTHER rows or
-    crash: every field is clamped inside the kernel."""
+    """Garbage record words in one region (the attacker controls only wire
+    bytes, but the kernel must not trust records either) stay inside that
+    region: every field is clamped, and the other region decodes exact."""
     rng = np.random.default_rng(11)
-    bs = 4096
-    nb = 8
-    pairs = 2
-    trips_n = 64
-    ways = 8
-    words = rng.integers(-2**31, 2**31, nb * 2 * trips_n * pairs,
-                         dtype=np.int64).astype(np.int32)
-    bases = (np.arange(nb, dtype=np.int32) * 2 * trips_n * pairs)
-    trips = np.full(nb // ways, trips_n, np.int32)
-    wire = rng.integers(0, 256, (nb, 5120), dtype=np.uint8)
-    out = decode_blocks_wire_compact(
-        np.asarray(wire), np.asarray(words), np.asarray(bases),
-        np.asarray(trips), bs, False, None, True, pair=pairs, ways=ways)
-    out_np = np.asarray(out)
-    assert out_np.shape == (nb, bs)  # completed without OOB faults
+    good = np.asarray(make_blocks_good())
+    comp = np.asarray(lz4.compress_raw(good))
+    plan = plan_regions(comp, [(0, len(comp), False)], 4096)
+    n_bad = 64
+    bad = rng.integers(-2**31, 2**31, (n_bad, 2),
+                       dtype=np.int64).astype(np.int32)
+    recs = np.concatenate([bad, plan.recs])
+    meta = np.array([[0, n_bad, 0, 3000],
+                     [n_bad, len(plan.recs), 3000, plan.total]], np.int32)
+    hostile = Plan(plan.wire, recs, meta, 3000 + plan.total)
+    m, r, w, h, out_len = padded_inputs(hostile)
+    out = np.asarray(decode_regions(jnp.asarray(m), jnp.asarray(r),
+                                    jnp.asarray(w), jnp.asarray(h),
+                                    out_len))
+    assert out.shape == (out_len,)
+    np.testing.assert_array_equal(out[3000: 3000 + plan.total], good)
+
+
+def make_blocks_good():
+    rec = b'{"id":7,"name":"user","tags":["a","b"],"ok":true}\n'
+    return np.frombuffer((rec * 80)[:4000], np.uint8)

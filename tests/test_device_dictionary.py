@@ -11,8 +11,8 @@ host/device x encode/decode round-trips with the dictionary.
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
-from divortio_lz4_tpu.parallel import (
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4.parallel import (
     ShardedCodec,
     device_compress_frame,
     device_decompress_frame,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
 
 DICT_STRING = b"CommonPrefix_SharedData_Reference_1234567890"
 MSG_1 = DICT_STRING + b"_UniquePartA"

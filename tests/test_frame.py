@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import (
+from divortio_lz4 import (
     FrameConfig,
     compress_frame,
     decompress_frame,

@@ -8,7 +8,7 @@ bit-exactness anchors for every decode path in this framework.
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
 
 GOLDEN_HELLO = "04224D186040820B00008048656c6c6f20576f726c6400000000"
 GOLDEN_EMPTY_4MB = "04224D1860707300000000"
@@ -164,7 +164,7 @@ GOLDEN_CONTENT_SIZE = ("04224D1868400B00000000000000580B00008048656C6C6F2057"
 
 
 def _stream_decode(frame: bytes, dictionary=None) -> bytes:
-    from divortio_lz4_tpu.stream import LZ4Decoder
+    from divortio_lz4.stream import LZ4Decoder
     dec = LZ4Decoder(dictionary=dictionary)
     got = b""
     for i in range(0, len(frame), 997):
@@ -220,7 +220,7 @@ def test_golden_content_size_direct_write():
 def test_golden_frames_on_device_path():
     # The device frame decoder must agree with the host tier on the same
     # fixed bytes (runs in interpret mode on the CPU mesh under pytest).
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
     got = device_decompress_frame(from_hex(GOLDEN_MULTIBLOCK))
     assert bytes(np.asarray(got).tobytes()) == b"A" * 131072
     got = device_decompress_frame(from_hex(GOLDEN_LINKED_XBLOCK))
@@ -238,7 +238,7 @@ def test_skippable_frame_is_skipped():
     out = decompress_frame(np.frombuffer(frame, np.uint8))
     assert bytes(out) == b"Hello World"
     # streaming FSM path, fed in small fragments
-    from divortio_lz4_tpu.stream import LZ4Decoder
+    from divortio_lz4.stream import LZ4Decoder
     dec = LZ4Decoder()
     got = b""
     for i in range(0, len(frame), 3):

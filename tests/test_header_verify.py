@@ -9,13 +9,13 @@ descriptor byte raises a typed error instead of misparsing the frame.
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import (
+from divortio_lz4 import (
     FrameConfig,
     LZ4Decoder,
     compress_frame,
     decompress_frame,
 )
-from divortio_lz4_tpu.parallel import (
+from divortio_lz4.parallel import (
     device_compress_frame,
     device_decompress_frame,
     parse_block_index,
@@ -68,7 +68,7 @@ def test_device_decode_rejects_corrupt_flg():
 
 def test_golden_frames_pass_header_verification():
     # The reference encoder writes correct HC bytes; golden vectors decode.
-    from tests.test_golden import GOLDEN_HELLO  # noqa: PLC0415
+    from test_golden import GOLDEN_HELLO  # noqa: PLC0415
     out = decompress_frame(np.frombuffer(bytes.fromhex(GOLDEN_HELLO),
                                          dtype=np.uint8))
     assert bytes(out) == b"Hello World"

@@ -1,12 +1,34 @@
-"""Hybrid encoder (XLA chain + Pallas walk, interpret mode on CPU):
-decode-compatible streams at a ratio <= the reference encoder's."""
+"""Chain-direct encoder with exact-word chains (device candidate chains
++ host select/serialize): decode-compatible streams at a ratio <= the
+reference encoder's, including the adversarial ratio gate."""
 
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import compress_raw, decompress_raw
-from divortio_lz4_tpu.ops.block_ref import decompress_block_ref
-from divortio_lz4_tpu.ops.hybrid_encode import encode_block_hybrid_host
+from divortio_lz4 import compress_raw, decompress_raw
+from divortio_lz4.constants import WINDOW_SIZE
+from divortio_lz4.ops.block_ref import decompress_block_ref
+from divortio_lz4.ops.split_encode import (
+    chain_select_serialize, encode_block_split_host, encode_blocks_chain)
+
+
+def encode_block_hybrid_host(data, history=None, block_size=None):
+    """One block through exact-word chains, with an optional history
+    window (right-aligned before the payload)."""
+    if history is None or not len(history):
+        return encode_block_split_host(data, block_size, exact=True)
+    h = np.asarray(history, np.uint8)[-WINDOW_SIZE:]
+    n = len(data)
+    bs = block_size or max(-(-n // 1024) * 1024, 1024)
+    work = np.zeros((1, WINDOW_SIZE + bs), np.int32)
+    work[0, WINDOW_SIZE - len(h): WINDOW_SIZE] = h
+    work[0, WINDOW_SIZE: WINDOW_SIZE + n] = data
+    chains = np.asarray(encode_blocks_chain(
+        work, np.array([n], np.int32), bs, WINDOW_SIZE,
+        WINDOW_SIZE - len(h), exact=True))
+    wk = np.zeros(WINDOW_SIZE + n + 8, np.uint8)
+    wk[: WINDOW_SIZE + n] = work[0, : WINDOW_SIZE + n]
+    return chain_select_serialize(wk, WINDOW_SIZE, n, chains[0])
 
 
 CASES = {
@@ -53,10 +75,6 @@ def test_hybrid_compressible_corpus(compressible):
 
 def test_hybrid_batch_mixed_lens(compressible, rng):
     """Several rows per batch, full and partial payloads."""
-    import jax.numpy as jnp
-
-    from divortio_lz4_tpu.ops.hybrid_encode import encode_blocks_hybrid
-
     B = 2048
     rows = [
         np.asarray(compressible(B)),
@@ -71,13 +89,11 @@ def test_hybrid_batch_mixed_lens(compressible, rng):
     for i, r in enumerate(rows):
         work[i, : len(r)] = r
         lens[i] = len(r)
-    out, out_len = encode_blocks_hybrid(
-        jnp.asarray(work), jnp.asarray(lens), B, 0, 0, True)
-    out = np.asarray(out)
-    out_len = np.asarray(out_len)
+    chains = np.asarray(encode_blocks_chain(work, lens, B, exact=True))
     for i, r in enumerate(rows):
-        comp = out[i, : int(out_len[i])].astype(np.uint8)
-        _roundtrip(r, comp)
+        wk = np.zeros(B + 8, np.uint8)
+        wk[: len(r)] = r
+        _roundtrip(r, chain_select_serialize(wk, 0, len(r), chains[i]))
 
 
 def test_hybrid_history_dictionary(compressible):
@@ -110,16 +126,16 @@ def test_hybrid_history_partial_window(compressible):
 
 
 def test_hybrid_frame_engine(compressible):
-    """engine='hybrid' through the device frame path: independent, linked,
+    """engine='split' through the device frame path: independent, linked,
     and dictionary frames all decode on the host tier."""
-    from divortio_lz4_tpu import FrameConfig, decompress
-    from divortio_lz4_tpu.parallel.device import (
+    from divortio_lz4 import FrameConfig, decompress
+    from divortio_lz4.parallel.device import (
         device_compress_frame, device_decompress_frame)
 
     data = np.asarray(compressible(30000))
     for indep in (True, False):
         cfg = FrameConfig(block_size=4096, block_independence=indep)
-        f = device_compress_frame(data, cfg, engine="hybrid")
+        f = device_compress_frame(data, cfg, engine="split")
         assert bytes(decompress(np.array(f))) == bytes(data)
         assert bytes(np.asarray(device_decompress_frame(
             np.array(f)))) == bytes(data)
@@ -127,32 +143,32 @@ def test_hybrid_frame_engine(compressible):
     d = np.asarray(compressible(9000))
     cfg = FrameConfig(block_size=4096, block_independence=True)
     f = device_compress_frame(data[:8000], cfg, dictionary=d,
-                              engine="hybrid")
+                              engine="split")
     assert bytes(decompress(np.array(f), dictionary=d)) == bytes(data[:8000])
 
 
 def test_hybrid_large_block_falls_back_to_xla(compressible):
-    """Blocks past hybrid_max_bs (u16 chain-position ceiling) silently use
-    the XLA kernel and still round-trip."""
-    from divortio_lz4_tpu import FrameConfig, decompress
-    from divortio_lz4_tpu.ops.hybrid_encode import hybrid_max_bs
-    from divortio_lz4_tpu.parallel.device import device_compress_frame
+    """Blocks past hybrid_max_bs (u16 chain-position ceiling) encode as
+    64 KB segments spliced on the host and still round-trip."""
+    from divortio_lz4 import FrameConfig, decompress
+    from divortio_lz4.ops.hybrid_encode import hybrid_max_bs
+    from divortio_lz4.parallel.device import device_compress_frame
 
     bs = 262144
     assert bs > hybrid_max_bs()
     data = np.asarray(compressible(30000))
     cfg = FrameConfig(block_size=bs, block_independence=True)
-    f = device_compress_frame(data, cfg, engine="hybrid")
+    f = device_compress_frame(data, cfg, engine="split")
     assert bytes(decompress(np.array(f))) == bytes(data)
 
 
 # ---------------------------------------------------------------------------
-# Adversarial ratio gate (VERDICT r2 weak #4): the hybrid chain commits to
-# the NEAREST previous occurrence; the reference's stale 16K table can in
-# principle hold an older longer match, so `<= reference` is empirical.
-# These corpora pin the known failure classes as a regression fence —
-# period-53 data was measured 55x WORSE before the run-interior poison fix
-# (ops/hybrid_encode.py chain B).
+# Adversarial ratio gate (VERDICT r2 weak #4): the chain scores a few
+# nearby candidates; the reference's stale 16K table can in principle hold
+# an older longer match, so `<= reference` is empirical. These corpora pin
+# the known failure classes as a regression fence — period-53 data was
+# measured 55x WORSE before the run-interior poison fix
+# (ops/hybrid_encode.py _cand_row).
 # ---------------------------------------------------------------------------
 
 def _adversarial_cases(rng):
@@ -197,4 +213,4 @@ def test_hybrid_adversarial_ratio_gate(name, rng):
     _roundtrip(data, comp)
     ref = np.asarray(compress_raw(data))
     assert len(comp) <= len(ref), \
-        f"{name}: hybrid {len(comp)} > reference {len(ref)}"
+        f"{name}: chain {len(comp)} > reference {len(ref)}"

@@ -6,8 +6,8 @@ import sys
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
-from divortio_lz4_tpu.parallel.multihost import (
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4.parallel.multihost import (
     MultiHostCodec,
     shard_bounds,
     split_frames,
@@ -93,7 +93,7 @@ def test_cli_roundtrip(tmp_path, compressible):
     comp = tmp_path / "file.bin.lz4"
     out = tmp_path / "file.out"
     r1 = subprocess.run(
-        [sys.executable, "-m", "divortio_lz4_tpu", "compress", str(src),
+        [sys.executable, "-m", "divortio_lz4", "compress", str(src),
          "-o", str(comp), "--checksum", "-b", "65536"],
         capture_output=True, text=True, cwd="/root/repo",
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
@@ -101,7 +101,7 @@ def test_cli_roundtrip(tmp_path, compressible):
     assert r1.returncode == 0, r1.stderr
     assert comp.stat().st_size < len(data)
     r2 = subprocess.run(
-        [sys.executable, "-m", "divortio_lz4_tpu", "decompress", str(comp),
+        [sys.executable, "-m", "divortio_lz4", "decompress", str(comp),
          "-o", str(out)],
         capture_output=True, text=True, cwd="/root/repo",
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",

@@ -8,10 +8,10 @@ another, in every direction; plus byte-identical encoder output across tiers
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu import FrameConfig, compress_frame, decompress_frame
-from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.ops.block_ref import new_hash_table
+import divortio_lz4 as lz4
+from divortio_lz4 import FrameConfig, compress_frame, decompress_frame
+from divortio_lz4.constants import block_bound
+from divortio_lz4.ops.block_ref import new_hash_table
 
 pytestmark = pytest.mark.skipif(not lz4.NATIVE_AVAILABLE,
                                 reason="native library not built")
@@ -22,22 +22,22 @@ def test_native_is_default_backend():
 
 
 def test_native_xxhash_vectors():
-    from divortio_lz4_tpu.native import xxhash32_native
+    from divortio_lz4.native import xxhash32_native
     assert xxhash32_native(np.frombuffer(b"", dtype=np.uint8), 0) == 0x02CC5D05
     assert xxhash32_native(np.frombuffer(b"Hello World", dtype=np.uint8),
                            0) == 0xB1FD16EE
 
 
 def test_native_xxhash_matches_python(rng):
-    from divortio_lz4_tpu.native import xxhash32_native
-    from divortio_lz4_tpu.xxh.xxhash32 import _xxhash32_py
+    from divortio_lz4.native import xxhash32_native
+    from divortio_lz4.xxh.xxhash32 import _xxhash32_py
     for n in (0, 1, 15, 16, 17, 255, 4096, 100_001):
         data = rng.integers(0, 256, n, dtype=np.uint8)
         assert xxhash32_native(data, 7) == _xxhash32_py(data, 7)
 
 
 def test_encoders_byte_identical(compressible, rng):
-    from divortio_lz4_tpu.backends import get_backend
+    from divortio_lz4.backends import get_backend
     nat, py = get_backend("native"), get_backend("python")
     for data in (compressible(50_000),
                  rng.integers(0, 256, 10_000, dtype=np.uint8),

@@ -1,17 +1,17 @@
-"""Pallas decode kernel (interpret mode on CPU; compiled path covered by the
-TPU bench). Bit-exactness across every copy-strategy branch."""
+"""Decode route (engine "pallas" and "split": host record parse + the
+region kernel, interpret mode on CPU). Bit-exactness across every copy
+branch: literal runs, far matches, overlapping matches at offsets 1-3,
+long matches, history back-references, linked frames."""
 
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import compress_raw
-from divortio_lz4_tpu.backends import get_backend
-from divortio_lz4_tpu.constants import block_bound
-from divortio_lz4_tpu.ops.block_ref import new_hash_table
-from divortio_lz4_tpu.ops.pallas_decode import (
-    decode_block_pallas_host,
-    decode_blocks_pallas,
-)
+from divortio_lz4 import compress_raw
+from divortio_lz4.backends import get_backend
+from divortio_lz4.constants import block_bound
+from divortio_lz4.ops.block_ref import new_hash_table
+from divortio_lz4.ops.gpu_decode import (
+    decode_blocks, decode_frame_body, dispatch, plan_regions)
 
 
 def roundtrip(data, hist=None):
@@ -25,7 +25,10 @@ def roundtrip(data, hist=None):
         comp = out[:n]
     else:
         comp = np.asarray(compress_raw(data))
-    got = decode_block_pallas_host(np.asarray(comp), len(data), hist)
+    win = None if hist is None else np.asarray(hist)[-65536:]
+    plan = plan_regions(comp, [(0, len(comp), False)], len(data), True,
+                        0 if win is None else len(win))
+    got = np.asarray(dispatch(plan, win))[: plan.total]
     np.testing.assert_array_equal(got, data)
 
 
@@ -74,81 +77,49 @@ def test_pallas_decode_history_spanning():
 
 
 def test_pallas_decode_batch(compressible, rng):
-    import jax.numpy as jnp
-    from divortio_lz4_tpu.ops.pallas_decode import SLACK, _round_up
     blocks = [np.asarray(compressible(2048)),
               rng.integers(0, 256, 2048, dtype=np.uint8),
               np.tile(np.array([5, 4, 3], np.uint8), 683)[:2048],
               np.full(2048, 9, np.uint8),
-              np.asarray(compressible(1000))]  # 5 rows -> padded to 8
+              np.asarray(compressible(1000))]
     comps = [np.asarray(compress_raw(b)) for b in blocks]
-    M = _round_up(max(len(c) for c in comps) + SLACK, 1024)
-    comp = np.zeros((len(blocks), M), np.int32)
-    lens = np.zeros(len(blocks), np.int32)
-    for i, c in enumerate(comps):
-        comp[i, : len(c)] = c
-        lens[i] = len(c)
-    hist = np.zeros((len(blocks), 65536), np.int32)
-    out, out_lens = decode_blocks_pallas(
-        jnp.asarray(comp), jnp.asarray(lens), jnp.asarray(hist), 2048,
-        False, True)
-    for i, b in enumerate(blocks):
-        assert int(out_lens[i]) == len(b)
-        np.testing.assert_array_equal(
-            np.asarray(out[i][: len(b)]).astype(np.uint8), b)
+    for got, b in zip(decode_blocks(comps, 2048), blocks):
+        np.testing.assert_array_equal(got, b)
 
 
-def test_smem_stream_paths_identical(compressible):
-    """The SMEM scalar-parse path and the vreg-extract path must produce
-    identical output (same kernel semantics, different parse memory)."""
-    import jax.numpy as jnp
-
-    import divortio_lz4_tpu as lz4
-    from divortio_lz4_tpu.ops.pallas_decode import (
-        SLACK, _round_up, decode_blocks_pallas)
+def test_repeated_block_batch_identical(compressible):
+    """Eight copies of one block in one dispatch decode identically (no
+    cross-region interference)."""
+    import divortio_lz4 as lz4
 
     data = np.asarray(compressible(32768))
-    comp_b = np.asarray(lz4.compress_raw(data))
-    M = _round_up(len(comp_b) + SLACK, 1024)
-    comp = np.zeros((8, M), np.int32)
-    lens = np.zeros(8, np.int32)
-    for i in range(8):
-        comp[i, : len(comp_b)] = comp_b
-        lens[i] = len(comp_b)
-    hist = jnp.zeros((8, 65536), jnp.int32)
-    a = decode_blocks_pallas(jnp.asarray(comp), jnp.asarray(lens), hist,
-                             32768, False, True, smem_stream=True)
-    b = decode_blocks_pallas(jnp.asarray(comp), jnp.asarray(lens), hist,
-                             32768, False, True, smem_stream=False)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-    np.testing.assert_array_equal(np.asarray(a[0][0][:32768]).astype(np.uint8),
-                                  data)
+    comp = np.asarray(lz4.compress_raw(data))
+    outs = decode_blocks([comp] * 8, 32768)
+    for o in outs:
+        np.testing.assert_array_equal(o, data)
 
 
 def test_linked_chunk_kernel_roundtrip(compressible):
-    """Chained linked decode: one kernel call decodes dependent blocks with
-    cross-block back-references, window carried between calls."""
-    import jax.numpy as jnp
-
-    from divortio_lz4_tpu import FrameConfig, compress
-    from divortio_lz4_tpu.parallel.device import (
-        _decode_linked_pallas, parse_block_index)
+    """Linked decode: one region decodes dependent blocks with cross-block
+    back-references."""
+    from divortio_lz4 import FrameConfig, compress
+    from divortio_lz4.parallel.device import parse_block_index
 
     data = np.asarray(compressible(300000))  # 5 linked 64 KB blocks
     cfg = FrameConfig(block_size=65536, block_independence=False)
     frame = np.array(compress(data, config=cfg))
     header, blocks, _ = parse_block_index(frame)
     assert not header["independent"] and len(blocks) > 1
-    out = _decode_linked_pallas(frame, blocks, header["block_max"])
-    np.testing.assert_array_equal(out, data)
+    out, total = decode_frame_body(frame, blocks, header["block_max"],
+                                   False)
+    np.testing.assert_array_equal(np.asarray(out)[:total], data)
 
 
 def test_linked_pallas_engine_stored_blocks(rng, compressible):
     """Linked frames mixing compressed and stored blocks through the
     public device decode with engine='pallas'."""
-    from divortio_lz4_tpu import FrameConfig, compress
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4 import FrameConfig, compress
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     data = np.concatenate([
         np.asarray(compressible(90000)),
@@ -162,8 +133,8 @@ def test_linked_pallas_engine_stored_blocks(rng, compressible):
 
 
 def test_linked_pallas_engine_dictionary(compressible):
-    from divortio_lz4_tpu import FrameConfig, compress
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4 import FrameConfig, compress
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     d = np.asarray(compressible(5000))
     data = np.asarray(compressible(150000))
@@ -175,31 +146,27 @@ def test_linked_pallas_engine_dictionary(compressible):
 
 def test_linked_pallas_matches_xla_scan(compressible):
     """Same frame through both linked device decoders."""
-    from divortio_lz4_tpu import FrameConfig, compress
-    from divortio_lz4_tpu.parallel.device import (
-        _decode_linked, _decode_linked_pallas, parse_block_index)
+    from divortio_lz4 import FrameConfig, compress
+    from divortio_lz4.parallel.device import (
+        _decode_linked, parse_block_index)
 
     data = np.asarray(compressible(200000))
     cfg = FrameConfig(block_size=65536, block_independence=False)
     frame = np.array(compress(data, config=cfg))
     _, blocks, _ = parse_block_index(frame)
-    np.testing.assert_array_equal(
-        _decode_linked_pallas(frame, blocks, 65536),
-        _decode_linked(frame, blocks, 65536))
+    out, total = decode_frame_body(frame, blocks, 65536, False)
+    np.testing.assert_array_equal(np.asarray(out)[:total],
+                                  _decode_linked(frame, blocks, 65536))
 
 
-@pytest.mark.skipif("jax.default_backend() != 'tpu'")
-def test_linked_pallas_real_tpu_parity(compressible):
-    """Hardware parity marker (VERDICT r3 #6) for the compiled linked-chunk
-    Mosaic kernel."""
-    from divortio_lz4_tpu import FrameConfig, compress
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+@pytest.mark.gpu
+def test_linked_pallas_gpu_parity(compressible):
+    """The compiled kernel on the card decodes a linked frame exactly."""
+    from divortio_lz4 import FrameConfig, compress
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     data = np.asarray(compressible(1_000_000))
     cfg = FrameConfig(block_size=65536, block_independence=False)
     frame = np.array(compress(data, config=cfg))
     out = device_decompress_frame(frame, engine="pallas")
     np.testing.assert_array_equal(np.asarray(out), data)
-
-
-import jax  # noqa: E402,F401  (the TPU-parity skipif marker evaluates it)

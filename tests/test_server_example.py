@@ -8,7 +8,7 @@ import time
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
+import divortio_lz4 as lz4
 
 
 def _start(tls=False, port=18654):

@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import FrameConfig, decompress_frame, compress_frame
-from divortio_lz4_tpu.parallel import (
+from divortio_lz4 import FrameConfig, decompress_frame, compress_frame
+from divortio_lz4.parallel import (
     ShardedCodec,
     device_compress_frame,
     device_decompress_frame,
@@ -139,7 +139,8 @@ def test_device_frame_with_checksums(compressible):
 
 
 def test_device_decode_pallas_engine(compressible, rng):
-    # Pallas-engine frame decode (interpret mode on CPU), incl. stored rows.
+    # engine="pallas" decode takes the split route (region kernel,
+    # interpret mode on CPU), incl. stored rows.
     data = np.concatenate([np.asarray(compressible(150_000)),
                            rng.integers(0, 256, 70_000, dtype=np.uint8)])
     cfg = FrameConfig(block_size=65536, block_independence=True)
@@ -149,26 +150,25 @@ def test_device_decode_pallas_engine(compressible, rng):
 
 
 def test_device_encode_pallas_engine(compressible, rng):
-    # Pallas-engine frame encode (interpret on CPU): byte-identical to the
-    # host/reference encoder, incl. the stored fallback for random rows.
-    data = np.concatenate([np.asarray(compressible(100_000)),
-                           rng.integers(0, 256, 70_000, dtype=np.uint8)])
-    cfg = FrameConfig(block_size=65536, block_independence=True,
-                      content_size=False)
-    frame = device_compress_frame(data, cfg, engine="pallas")
-    host = compress_frame(data, config=cfg)
-    assert bytes(frame) == bytes(host)  # BYTE-IDENTICAL whole frame
-    np.testing.assert_array_equal(decompress_frame(np.array(frame)), data)
+    # engine="pallas" encode is gone (the native host tier is the
+    # byte-identical encoder): it raises, naming the supported engines,
+    # rather than rerouting silently.
+    data = np.asarray(compressible(10_000))
+    cfg = FrameConfig(block_size=65536, block_independence=True)
+    with pytest.raises(ValueError, match="xla, split"):
+        device_compress_frame(data, cfg, engine="pallas")
+    with pytest.raises(ValueError, match="xla, split"):
+        device_compress_frame(data, cfg, engine="hybrid")
 
 
 def test_sharded_codec_best_engine(compressible, rng):
-    """engine='best' (hybrid encoder + Pallas decoder on every chip):
-    round-trips through itself and cross-validates with the host tier."""
+    """engine='best' (chain-direct encoder + region decode kernel on
+    every device): round-trips through itself and cross-validates with
+    the host tier."""
     codec = ShardedCodec(make_mesh(4),
                          FrameConfig(block_size=4096,
                                      block_independence=True),
                          engine="best")
-    assert codec._use_best
     data = np.concatenate([np.asarray(compressible(60_000)),
                            rng.integers(0, 256, 9_000, dtype=np.uint8)])
     frame = codec.compress(data)

@@ -1,25 +1,46 @@
-"""Split decode path (host parse + interleaved all-vector Pallas copies,
-interpret mode on CPU): bit-exactness vs the host tier, the parser's record
-contract, error taxonomy, and hostile-record containment."""
+"""Split decode route (host record parse + the region kernel, interpret
+mode on CPU): bit-exactness vs the host tier, the parser's record
+contract, error taxonomy, hostile-record containment, and linked /
+dictionary / big-block frames through device_decompress_frame."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.ops.block_ref import compress_block_ref
-from divortio_lz4_tpu.ops.pallas_split_decode import (
-    LANES,
-    NOOP_W0,
-    NOOP_W1,
-    SLACK,
+import divortio_lz4 as lz4
+from divortio_lz4.ops.block_ref import compress_block_ref
+from divortio_lz4.ops.gpu_decode import (
+    SPAN,
     W,
-    _parse_records_py,
-    decode_block_split_host,
-    decode_blocks_split,
-    parse_block_batch,
-    parse_records,
-    plan_ways,
+    Plan,
+    _parse_records2_py,
+    decode_blocks,
+    decode_regions,
+    dispatch,
+    padded_inputs,
+    parse_records_wire,
+    plan_regions,
 )
+
+
+def _decode_one(comp, out_cap, history=None):
+    window = None if history is None else np.asarray(history)[-W:]
+    plan = plan_regions(comp, [(0, len(comp), False)], out_cap, True,
+                        0 if window is None else len(window))
+    return np.asarray(dispatch(plan, window))[: plan.total]
+
+
+def _replay(recs, wire, out_len):
+    """Execute records sequentially in numpy (the record contract)."""
+    out = np.zeros(out_len, np.uint8)
+    o = 0
+    for s, w1 in np.asarray(recs, np.uint32).tolist():
+        off, ll, ml = w1 & 0xFFFF, (w1 >> 16) & 0xFF, w1 >> 24
+        out[o: o + ll] = wire[s: s + ll]
+        o += ll
+        out[o: o + ml] = out[o - off: o - off + ml]
+        o += ml
+    return out
 
 
 def _cases(rng, compressible):
@@ -48,7 +69,7 @@ def test_split_decode_bit_exact(name, rng, compressible):
     comp = np.asarray(lz4.compress_raw(data))
     if len(comp) >= len(data):
         pytest.skip("stored-class block")
-    out = decode_block_split_host(comp, max(len(data), 1))
+    out = _decode_one(comp, max(len(data), 1))
     np.testing.assert_array_equal(out, data)
 
 
@@ -58,65 +79,42 @@ def test_split_decode_with_history(compressible):
     table = np.zeros(16384, np.int32)
     dst = np.zeros(len(data) * 2 + 1024, np.uint8)
     n = compress_block_ref(data, dst, len(hist), len(plain), table, 0)
-    out = decode_block_split_host(dst[:n], 65536, history=hist)
+    out = _decode_one(dst[:n], 65536, history=hist)
     np.testing.assert_array_equal(out, plain)
 
 
 def test_split_record_contract(compressible):
-    """Every record: mlen <= 128, and its source fully written when it
-    runs (replayed sequentially over a coverage map)."""
+    """Every record covers <= 128 output bytes, and its match source lies
+    fully before its own output (so it is written when it runs)."""
     data = np.asarray(compressible(40000))
     comp = np.asarray(lz4.compress_raw(data))
-    lit = np.zeros(len(data), np.uint8)
-    recs, out_len = parse_records(comp, lit, len(data))
+    recs, out_len = parse_records_wire(comp, len(data))
     assert out_len == len(data)
-    covered = np.zeros(len(data) + 1, bool)
-    # literal bytes are pre-placed => conceptually "written" at t=0 only
-    # where no record writes them; build the record-written map instead:
-    rec_written = np.zeros(len(data), bool)
-    for w0, dst in recs.tolist():
-        off, mlen = w0 & 0xFFFF, w0 >> 16
-        assert 1 <= off
-        assert mlen <= 128
-        src = dst - off
-        assert src >= 0
-        # source range must not overlap this record's own output
-        assert src + mlen <= dst
-        rec_written[dst: dst + mlen] = True
-    # replay equality: the records + literal image reproduce the block
-    out = lit.copy()
-    for w0, dst in recs.tolist():
-        off, mlen = w0 & 0xFFFF, w0 >> 16
-        out[dst: dst + mlen] = out[dst - off: dst - off + mlen]
-    np.testing.assert_array_equal(out, data)
+    o = 0
+    for s, w1 in recs.tolist():
+        off, ll, ml = w1 & 0xFFFF, (w1 >> 16) & 0xFF, w1 >> 24
+        assert 1 <= off and ll + ml <= SPAN
+        if ml:
+            src = o + ll - off
+            assert src >= 0
+            assert src + ml <= o  # never overlaps this record's output
+        o += ll + ml
+    np.testing.assert_array_equal(_replay(recs, comp, out_len), data)
 
 
 def test_split_parser_py_native_equivalent(compressible):
-    """Both parsers produce a valid plan that replays to the same bytes
-    (record streams may differ; the decoded output may not)."""
+    """Both parsers produce a plan that replays to the same bytes."""
     data = np.asarray(compressible(20000))
     comp = np.asarray(lz4.compress_raw(data))
-
-    def replay(parse):
-        lit = np.zeros(len(data), np.uint8)
-        recs, out_len = parse(comp, lit, len(data))
-        out = lit.copy()
-        for w0, dst in np.asarray(recs, np.uint32).tolist():
-            off, mlen = int(w0) & 0xFFFF, int(w0) >> 16
-            out[dst: dst + mlen] = out[dst - off: dst - off + mlen]
-        return out, out_len
-
-    out_py, n_py = replay(lambda c, l, cap: _parse_records_py(c, l, cap))
-    np.testing.assert_array_equal(out_py, data)
-    assert n_py == len(data)
+    r_py, n_py = _parse_records2_py(comp, len(data))
+    np.testing.assert_array_equal(_replay(r_py, comp, n_py), data)
     try:
-        from divortio_lz4_tpu.native import parse_records_native
+        from divortio_lz4.native import parse_records2_native
     except Exception:
         pytest.skip("native unavailable")
-    out_nat, n_nat = replay(
-        lambda c, l, cap: parse_records_native(c, l, cap))
-    np.testing.assert_array_equal(out_nat, data)
-    assert n_nat == len(data)
+    r_nat, n_nat = parse_records2_native(comp, len(data))
+    assert n_nat == n_py == len(data)
+    np.testing.assert_array_equal(_replay(r_nat, comp, n_nat), data)
 
 
 @pytest.mark.parametrize("parse", ["native", "py"])
@@ -125,11 +123,11 @@ def test_split_parser_py_native_equivalent(compressible):
 def test_split_parser_error_taxonomy(parse, case):
     if parse == "native":
         try:
-            from divortio_lz4_tpu.native import parse_records_native as fn
+            from divortio_lz4.native import parse_records2_native as fn
         except Exception:
             pytest.skip("native unavailable")
     else:
-        fn = _parse_records_py
+        fn = _parse_records2_py
     bad = {
         "truncated_run": bytes([0xF0] + [255] * 3),
         "offset0": bytes([0x10, ord("x"), 0x00, 0x00]),
@@ -143,86 +141,62 @@ def test_split_parser_error_taxonomy(parse, case):
         "overflow": "Output Buffer Too Small",
         "lit_overrun": "Malformed",
     }[case]
-    lit = np.zeros(64, np.uint8)
     with pytest.raises(ValueError, match=msg):
-        fn(np.frombuffer(bad, np.uint8), lit, 64)
+        fn(np.frombuffer(bad, np.uint8), 64)
 
 
 def test_split_batched_blocks_with_sorting(compressible, rng):
-    """Multi-block batch through the production grouping (sorted by record
-    count, padded to the interleave width)."""
-    import jax.numpy as jnp
-
+    """Multi-block batch of very different record densities in one
+    dispatch."""
     blocks = [np.asarray(compressible(16384)) for _ in range(5)]
     blocks.append(np.full(16384, 3, np.uint8))
     blocks.append(np.tile(rng.integers(0, 256, 100, np.uint8), 164)[:16384])
     comps = [np.asarray(lz4.compress_raw(b)) for b in blocks]
-    lit, recs, counts, out_lens, uh = parse_block_batch(comps, 16384)
-    ways = plan_ways(recs.shape[1], lit.shape[1])
-    order = np.argsort(counts, kind="stable")
-    pad = (-len(order)) % ways
-    order_p = np.concatenate([order, np.full(pad, order[-1], np.int64)]) \
-        if pad else order
-    nsteps = len(order_p) // ways
-    counts_s = counts[order_p]
-    trips = np.array([int(counts_s[g * ways:(g + 1) * ways].max())
-                      for g in range(nsteps)], np.int32)
-    out = decode_blocks_split(
-        jnp.asarray(lit[order_p]), jnp.asarray(recs[order_p]),
-        jnp.asarray(trips), 16384, uh, True)
-    out = np.asarray(out).astype(np.uint8)
-    for k in range(len(order_p)):
-        b = order_p[k]
-        np.testing.assert_array_equal(out[k][: out_lens[b]], blocks[b])
+    for o, b in zip(decode_blocks(comps, 16384), blocks):
+        np.testing.assert_array_equal(o, b)
+
+
+def _run(plan):
+    m, r, w, h, out_len = padded_inputs(plan)
+    return np.asarray(decode_regions(jnp.asarray(m), jnp.asarray(r),
+                                     jnp.asarray(w), jnp.asarray(h),
+                                     out_len))
 
 
 def test_split_hostile_records_stay_in_bounds():
-    """Garbage records (not from our parser) must not write outside the
-    block's io region or hang — clamps in the kernel, not trust."""
-    import jax.numpy as jnp
-
+    """Garbage records (not from our parser) must not write outside their
+    region or hang — clamps in the kernel, not trust."""
     BSZ = 2048
-    io_bytes = ((BSZ + SLACK) + 1023) // 1024 * 1024
-    lit = np.zeros((1, io_bytes), np.uint8)
-    lit[0, :BSZ] = 7
     rng = np.random.default_rng(3)
-    recs = rng.integers(0, 2**31 - 1, (1, 128, 2), dtype=np.int64) \
+    recs = rng.integers(0, 2**31 - 1, (128, 2), dtype=np.int64) \
         .astype(np.uint32)
-    recs[:, ::3, 0] = 0  # zero offsets / zero mlen variants
-    ways = plan_ways(128, io_bytes)
-    nb = ways
-    lit = np.repeat(lit, nb, 0)
-    recs = np.repeat(recs.view(np.int32), nb, 0)
-    trips = np.full(1, 128, np.int32)
-    out = decode_blocks_split(jnp.asarray(lit), jnp.asarray(recs),
-                              jnp.asarray(trips), BSZ, False, True)
-    assert out.shape == (nb, BSZ)  # completed without OOB/hang
-    assert int(jnp.sum(out)) >= 0
+    recs[::3, 1] = 0  # zero offsets / zero lengths
+    wire = np.full(BSZ, 7, np.uint8)
+    meta = np.array([[0, 128, 0, BSZ]], np.int32)
+    out = _run(Plan(wire, recs.view(np.int32), meta, BSZ))
+    assert not out[BSZ:].any()  # completed; nothing past the region
 
 
 def test_split_noop_record_is_identity():
-    import jax.numpy as jnp
-
-    BSZ = 1024
-    io_bytes = 2048
-    lit = np.arange(io_bytes, dtype=np.uint8).reshape(1, -1).copy()
-    recs = np.empty((1, 128, 2), np.uint32)
-    recs[..., 0] = NOOP_W0
-    recs[..., 1] = NOOP_W1
-    ways = plan_ways(128, io_bytes)
-    lit = np.repeat(lit, ways, 0)
-    recs = np.repeat(recs.view(np.int32), ways, 0)
-    out = decode_blocks_split(jnp.asarray(lit), jnp.asarray(recs),
-                              jnp.asarray(np.full(1, 128, np.int32)),
-                              BSZ, False, True)
-    np.testing.assert_array_equal(
-        np.asarray(out[0]).astype(np.uint8), lit[0][:BSZ])
+    """A record with no literal and no match bytes writes nothing."""
+    wire = np.arange(256, dtype=np.uint8)
+    recs = np.zeros((6, 2), np.uint32)
+    recs[0] = (0, 1 | (100 << 16))           # 100 literal bytes
+    recs[1] = (0, 1)                          # empty
+    recs[2] = (0, 0)                          # empty, zero offset
+    recs[3] = (100, 1 | (28 << 16))           # 28 more literals
+    recs[4] = (0, 1)                          # empty
+    recs[5] = (0, 64 | (64 << 24))            # match 64 bytes back
+    plan = Plan(wire, recs.view(np.int32),
+                np.array([[0, 6, 0, 192]], np.int32), 192)
+    out = _run(plan)[:192]
+    np.testing.assert_array_equal(out[:128], wire[:128])
+    np.testing.assert_array_equal(out[128:], wire[64:128])
 
 
 # ---------------------------------------------------------------------------
-# Chain-split decode: linked frames and big blocks as dependent piece
-# chains through the split kernel (device window carry, host parse with
-# piece-base record rebasing). Small shapes — interpret mode is slow.
+# Frames through device_decompress_frame(engine="split"): a linked frame is
+# one region, a big block one region; small shapes — interpret mode is slow.
 # ---------------------------------------------------------------------------
 
 def _chain_cases(compressible, rng):
@@ -231,7 +205,7 @@ def _chain_cases(compressible, rng):
 
 
 def test_chain_split_linked_frame(compressible, rng):
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     corpus = np.asarray(compressible(120000))
     cfg = lz4.FrameConfig(block_size=65536, block_independence=False)
@@ -241,7 +215,7 @@ def test_chain_split_linked_frame(compressible, rng):
 
 
 def test_chain_split_linked_dictionary(compressible):
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     corpus = np.asarray(compressible(90000))
     d = bytes(corpus[:6000].tobytes())
@@ -252,7 +226,7 @@ def test_chain_split_linked_dictionary(compressible):
 
 
 def test_chain_split_linked_stored_mix(compressible, rng):
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     corpus = np.concatenate([np.asarray(compressible(80000)),
                              rng.integers(0, 256, 70000, np.uint8)])
@@ -263,7 +237,7 @@ def test_chain_split_linked_stored_mix(compressible, rng):
 
 
 def test_chain_split_bigblock_independent(compressible):
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     corpus = np.asarray(compressible(150000))
     cfg = lz4.FrameConfig(block_size=1048576, block_independence=True)
@@ -273,7 +247,7 @@ def test_chain_split_bigblock_independent(compressible):
 
 
 def test_chain_split_giant_rle_falls_back(rng):
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
+    from divortio_lz4.parallel.device import device_decompress_frame
 
     corpus = np.zeros(400000, np.uint8)  # single >256KB-output sequence
     cfg = lz4.FrameConfig(block_size=65536, block_independence=False)
@@ -285,9 +259,9 @@ def test_chain_split_giant_rle_falls_back(rng):
 def test_chain_split_rejects_oob_backref():
     """A linked frame whose first sequence back-references before the
     stream start (no dictionary) must raise the host taxonomy on the
-    chain-split path too — not silently decode zeros (r3 review fix)."""
-    from divortio_lz4_tpu.parallel.device import device_decompress_frame
-    from divortio_lz4_tpu.xxh import xxhash32
+    split route too — not silently decode zeros."""
+    from divortio_lz4.parallel.device import device_decompress_frame
+    from divortio_lz4.xxh import xxhash32
 
     # hand-built: lit 5 "HELLO", match offset 16 (OOB), mlen 4; trailing
     # lit 5 "WORLD"
@@ -307,10 +281,9 @@ def test_chain_split_rejects_oob_backref():
 
 def test_sharded_split_decode_respects_frame_block_size(compressible):
     """ShardedCodec configured with one block size must decode frames
-    written with ANOTHER block size bit-exactly (r3 review fix: the
-    kernel's output capacity comes from the frame header, not the codec
-    config)."""
-    from divortio_lz4_tpu.parallel.sharding import ShardedCodec, make_mesh
+    written with ANOTHER block size bit-exactly (the kernel's output
+    capacity comes from the frame header, not the codec config)."""
+    from divortio_lz4.parallel.sharding import ShardedCodec, make_mesh
 
     corpus = np.asarray(compressible(120000))
     frame_cfg = lz4.FrameConfig(block_size=65536, block_independence=True)

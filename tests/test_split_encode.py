@@ -1,19 +1,30 @@
 """Chain-direct encoder (device candidate chains + host select/extend/
-serialize): wire identity vs the hybrid walk, round-trips, ratio gates,
-frame and streaming integration."""
+serialize): native == Python serializer wire identity, round-trips, ratio
+gates, frame and streaming integration."""
 
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.ops.hybrid_encode import encode_block_hybrid_host
-from divortio_lz4_tpu.ops.split_encode import (
+import divortio_lz4 as lz4
+from divortio_lz4.ops.split_encode import (
     _chain_serialize16_py,
-    _chain_serialize_py,
     chain_select_serialize,
     encode_block_split_host,
     encode_blocks_chain,
 )
+
+
+def _py_serialized(data, exact=True):
+    """The same block through the pure-Python serializer."""
+    n = len(data)
+    bs = max(-(-n // 1024) * 1024, 1024)
+    work = np.zeros((1, bs), np.int32)
+    work[0, :n] = data
+    chains = np.asarray(encode_blocks_chain(
+        work, np.array([n], np.int32), bs, exact=exact))
+    wk = np.zeros(bs + 8, np.uint8)
+    wk[:n] = data
+    return _chain_serialize16_py(wk, 0, n, chains[0])
 
 
 def _roundtrip(data, comp):
@@ -39,12 +50,12 @@ CASES = {
 def test_chain_encode_matches_hybrid_wire(name):
     data = CASES[name]
     c = encode_block_split_host(data, exact=True)
-    h = encode_block_hybrid_host(data)
     _roundtrip(data, c)
     if len(data):
         # exact chains: same candidates + same greedy + same exact
-        # extension => same bytes as the hybrid Pallas walk
-        np.testing.assert_array_equal(np.asarray(c), np.asarray(h))
+        # extension => same bytes from the native and Python serializers
+        np.testing.assert_array_equal(np.asarray(c),
+                                      np.asarray(_py_serialized(data)))
     ref = np.asarray(lz4.compress_raw(data))
     assert len(c) <= max(len(ref), 1)
     # production hashed sort diet: collisions are verified away on host;
@@ -59,9 +70,9 @@ def test_chain_encode_matches_hybrid_wire(name):
                                   "runs_spacers", "period53_mut"])
 def test_chain_encode_hashed_adversarial_ratio_gate(name, rng):
     """The hashed sort diet shares the reference table's collision
-    exposure — fence it with the same adversarial corpora as the hybrid
-    gate (plus the decode-correctness roundtrip)."""
-    from tests.test_hybrid_encode import _adversarial_cases
+    exposure — fence it with the same adversarial corpora as the exact
+    chains' gate (plus the decode-correctness roundtrip)."""
+    from test_hybrid_encode import _adversarial_cases
 
     data = _adversarial_cases(rng)[name]
     comp = encode_block_split_host(data)
@@ -108,7 +119,7 @@ def test_chain_encode_batch_varied_lens(compressible, rng):
 def test_chain_encode_history_row(compressible):
     """Dictionary/linked-style [history | payload] rows: back-references
     into the history resolve during host extension."""
-    from divortio_lz4_tpu.constants import WINDOW_SIZE
+    from divortio_lz4.constants import WINDOW_SIZE
 
     data = np.asarray(compressible(9000))
     hist, payload = data[:4096], data[4096:]
@@ -124,19 +135,15 @@ def test_chain_encode_history_row(compressible):
     wk[hl: hl + len(payload)] = payload
     c = chain_select_serialize(wk, hl, len(payload), chains[0])
     out = np.empty(len(payload), np.uint8)
-    from divortio_lz4_tpu.ops.block_ref import decompress_block_ref
+    from divortio_lz4.ops.block_ref import decompress_block_ref
     n = decompress_block_ref(np.asarray(c), 0, len(c), out, 0, hist)
     assert n == len(payload)
     np.testing.assert_array_equal(out, payload)
 
 
 def test_chain_serializers_agree(compressible):
-    """Native u16 == Python u16 == legacy packed-i32 serializer, over the
-    same candidate search."""
-    import jax.numpy as jnp
-
-    from divortio_lz4_tpu.ops.hybrid_encode import build_chains
-
+    """Native u16 == Python u16 serializer, over the same candidate
+    search, exact and hashed."""
     data = np.asarray(compressible(8192))
     work = data.astype(np.int32).reshape(1, -1)
     lens = np.array([8192], np.int32)
@@ -147,10 +154,6 @@ def test_chain_serializers_agree(compressible):
     a = chain_select_serialize(wk, 0, 8192, chains[0])
     b = _chain_serialize16_py(wk, 0, 8192, chains[0])
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    packed = np.asarray(build_chains(jnp.asarray(work), jnp.asarray(lens),
-                                     0, 0))
-    c = _chain_serialize_py(wk, 0, 8192, packed[0])
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
     # hashed chains: native and Python serializers must also agree on the
     # VERIFIED (collision-filtered) stream
     hashed = np.asarray(encode_blocks_chain(work, lens, 8192))
@@ -188,14 +191,14 @@ def test_chain_encode_long_match_single_sequence(rng):
     c = encode_block_split_host(data, exact=True)
     _roundtrip(data, c)
     np.testing.assert_array_equal(
-        np.asarray(c), np.asarray(encode_block_hybrid_host(data)))
+        np.asarray(c), np.asarray(_py_serialized(data)))
     ch = encode_block_split_host(data)
     _roundtrip(data, ch)
     assert len(ch) <= len(c) + 8  # hashed diet: same single-sequence shape
 
 
 def test_chain_encode_frame_paths(compressible):
-    from divortio_lz4_tpu.parallel.device import device_compress_frame
+    from divortio_lz4.parallel.device import device_compress_frame
 
     corpus = np.asarray(compressible(150000))
     cfg = lz4.FrameConfig(block_size=65536, block_independence=True)
@@ -214,7 +217,7 @@ def test_device_streaming_engines(compressible, rng):
     """backend="device" streaming: encoder batches full blocks through the
     chain-direct encoder; decoder batches buffered blocks through the split
     kernel; cross-checked against the host tier both ways."""
-    from divortio_lz4_tpu.stream import LZ4Decoder, LZ4Encoder
+    from divortio_lz4.stream import LZ4Decoder, LZ4Encoder
 
     corpus = np.concatenate([np.asarray(compressible(400000)),
                              rng.integers(0, 256, 70000, np.uint8)])
@@ -241,7 +244,7 @@ def test_device_streaming_engines(compressible, rng):
 def test_streaming_backend_observability(compressible, rng):
     """VERDICT r3 #7: stats counters tell which backend served each block
     instead of leaving offload behavior untelegraphed."""
-    from divortio_lz4_tpu.stream import LZ4Decoder, LZ4Encoder
+    from divortio_lz4.stream import LZ4Decoder, LZ4Encoder
 
     corpus = np.asarray(compressible(400000))  # 6 full 64K blocks + tail
     cfg = lz4.FrameConfig(block_size=65536, block_independence=True)
@@ -271,7 +274,7 @@ def test_streaming_linked_device_offload(compressible, rng):
     per-row history slices (VERDICT r3 #7); the stream stays spec-valid,
     window-continuous across the burst boundary, and no larger than the
     host tier's."""
-    from divortio_lz4_tpu.stream import LZ4Encoder
+    from divortio_lz4.stream import LZ4Encoder
 
     corpus = np.concatenate([np.asarray(compressible(380000)),
                              rng.integers(0, 256, 30000, np.uint8)])
@@ -307,14 +310,15 @@ def test_streaming_linked_device_offload(compressible, rng):
 
 def test_chain_encode_linked_frame(compressible):
     """engine='split' covers LINKED frames natively (per-block known-
-    plaintext history rows); the hashed diet keeps the stream within the
-    hybrid walk's size envelope on this corpus."""
-    from divortio_lz4_tpu.parallel.device import device_compress_frame
+    plaintext history rows); the linked window beats the independent
+    frame on this corpus."""
+    from divortio_lz4.parallel.device import device_compress_frame
 
     corpus = np.asarray(compressible(150000))
     cfg = lz4.FrameConfig(block_size=65536, block_independence=False)
     f = device_compress_frame(corpus, cfg, engine="split")
-    h = device_compress_frame(corpus, cfg, engine="hybrid")
+    h = device_compress_frame(corpus, cfg.with_(block_independence=True),
+                              engine="split")
     assert len(f) <= len(h) + 64
     out = lz4.decompress(np.asarray(f))
     np.testing.assert_array_equal(np.asarray(out), corpus)
@@ -329,12 +333,12 @@ def test_chain_encode_linked_frame(compressible):
     np.testing.assert_array_equal(np.asarray(out), corpus[:80000])
 
 
-@pytest.mark.skipif("jax.default_backend() != 'tpu'")
-def test_chain_encode_real_tpu_parity(compressible):
-    """Hardware parity marker (VERDICT r3 #6): the compiled chain kernel's
-    frames must decode bit-exact on the host tier and hold the ratio gate
-    vs the reference-identical host encoder."""
-    from divortio_lz4_tpu.parallel.device import device_compress_frame
+@pytest.mark.gpu
+def test_chain_encode_gpu_parity(compressible):
+    """The chain kernel compiled for the card: frames decode bit-exact on
+    the host tier and hold the ratio gate vs the reference-identical host
+    encoder."""
+    from divortio_lz4.parallel.device import device_compress_frame
 
     corpus = np.asarray(compressible(2_000_000))
     cfg = lz4.FrameConfig(block_size=65536, block_independence=True)
@@ -344,13 +348,10 @@ def test_chain_encode_real_tpu_parity(compressible):
     assert len(f) <= len(lz4.compress(corpus, config=cfg))
 
 
-import jax  # noqa: E402,F401  (the TPU-parity skipif marker evaluates it)
-
-
 def test_multiframe_pipelined_roundtrip(compressible, rng):
     """device_compress_frames/device_decompress_frames (VERDICT r3 #5):
     N frames in flight, results identical to the per-frame calls."""
-    from divortio_lz4_tpu.parallel.device import (
+    from divortio_lz4.parallel.device import (
         device_compress_frame, device_compress_frames,
         device_decompress_frame, device_decompress_frames)
 
@@ -367,7 +368,7 @@ def test_multiframe_pipelined_roundtrip(compressible, rng):
     outs = device_decompress_frames(frames, engine="split")
     for d, o in zip(datas, outs):
         np.testing.assert_array_equal(np.asarray(o), d)
-    # ineligible frames (linked / big-block) fall back in place
+    # linked frames ride the same pipeline as one region
     lcfg = lz4.FrameConfig(block_size=65536, block_independence=False)
     mixed = [np.asarray(lz4.compress(datas[0], config=lcfg)), frames[1]]
     outs = device_decompress_frames(mixed, engine="split")

@@ -9,12 +9,12 @@ buffer-decompress and vice versa) and the byte-at-a-time FSM stress.
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import (
+from divortio_lz4 import (
     FrameConfig,
     compress_frame,
     decompress_frame,
 )
-from divortio_lz4_tpu.stream import (
+from divortio_lz4.stream import (
     CompressStream,
     DecompressStream,
     LZ4Decoder,

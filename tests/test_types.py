@@ -2,7 +2,7 @@
 
 import pytest
 
-from divortio_lz4_tpu import (
+from divortio_lz4 import (
     compress_object,
     compress_string,
     decompress_object,

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import ensure_buffer
-from divortio_lz4_tpu.constants import (
+from divortio_lz4 import ensure_buffer
+from divortio_lz4.constants import (
     BLOCK_MAX_SIZES,
     block_bound,
     frame_bound,
     get_block_id,
 )
-from divortio_lz4_tpu.utils import read_u32le, write_u32le
+from divortio_lz4.utils import read_u32le, write_u32le
 
 
 @pytest.mark.parametrize("v", [0, 1, 0xFF, 0x1234, 0xDEADBEEF, 0xFFFFFFFF])
@@ -37,7 +37,7 @@ def test_block_id_mapping(size, bid):
 
 def test_block_bound_covers_worst_case():
     # Worst case: n incompressible bytes = token-run overhead.
-    from divortio_lz4_tpu import compress_raw
+    from divortio_lz4 import compress_raw
     rng = np.random.default_rng(5)
     for n in (1, 14, 15, 16, 254, 255, 256, 5000):
         data = rng.integers(0, 256, n, dtype=np.uint8)
@@ -46,7 +46,7 @@ def test_block_bound_covers_worst_case():
 
 
 def test_frame_bound_covers_compress():
-    from divortio_lz4_tpu import FrameConfig, compress_frame
+    from divortio_lz4 import FrameConfig, compress_frame
     rng = np.random.default_rng(6)
     for n in (0, 100, 70_000, 200_000):
         data = rng.integers(0, 256, n, dtype=np.uint8)

@@ -1,34 +1,25 @@
-"""Chain-wave decode (ops/wave_decode.py): one kernel dispatch per frame.
+"""Big-block (256 KB - 4 MB) and linked frames through the region kernel.
 
-The wave kernel serves the reference's DEFAULT config — 4 MB independent
-blocks (bufferCompress.js:100) — and linked frames of any block size. Its
-contract: bit-exact output vs the host tier, spec window semantics
-(blockDecompress.js:145-154 — resets at independent block boundaries,
-carries across linked blocks and pieces), and graceful None fallbacks for
-streams the fixed wave shapes can't hold.
-
-Interpret mode on CPU (conftest forces the 8-device CPU mesh); the
-compiled path is covered by the TPU-parity marker at the bottom plus
-bench.py's device_bigblock tier on every driver run.
+The reference's DEFAULT config is 4 MB independent blocks
+(bufferCompress.js:100): each block is one region of the kernel, and a
+linked frame of any block size is one region whose back-references reach
+earlier blocks. Contract: bit-exact output vs the host tier and spec
+window semantics (blockDecompress.js:145-154 — reset at independent block
+boundaries, carry across linked blocks). Interpret mode on CPU; the gpu
+marker runs the compiled kernel.
 """
 
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.ops.wave_decode import (
-    MAX_WAVE_RECS,
-    WAVE_CHUNK,
-    decompress_frame_waves,
-    plan_waves,
-)
-from divortio_lz4_tpu.parallel.bigblock import _plan_pieces
-from divortio_lz4_tpu.parallel.device import (
+import divortio_lz4 as lz4
+from divortio_lz4.ops.gpu_decode import decode_frame_body, plan_regions
+from divortio_lz4.parallel.device import (
     device_decompress_frame,
     parse_block_index,
 )
 
-from tests.conftest import make_compressible
+from conftest import make_compressible
 
 BS = 262144  # smallest big-block tier — same wave machinery as 1 MB/4 MB
 
@@ -46,8 +37,10 @@ def waves_decode(frame: np.ndarray, dictionary=None):
     hdr, blocks, _ = parse_block_index(frame)
     window = None
     if dictionary is not None:
-        window = np.asarray(dictionary)
-    return decompress_frame_waves(frame, blocks, hdr, window)
+        window = np.asarray(dictionary)[-65536:]
+    out, total = decode_frame_body(frame, blocks, hdr["block_max"],
+                                   hdr["independent"], window)
+    return np.asarray(out)[:total]
 
 
 # ------------------------------------------------------------ round trips --
@@ -61,8 +54,7 @@ def test_wave_independent_bigblocks():
 
 
 def test_wave_linked_frame_carries_window():
-    # Linked frames re-use cross-block history: decoding them through the
-    # wave chain exercises the no-reset path and cross-wave back-refs.
+    # Linked frames re-use cross-block history: one region, no reset.
     raw = mixed_corpus(700000, seed=7)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=False)
     frame = np.asarray(lz4.compress(raw, config=cfg))
@@ -71,9 +63,8 @@ def test_wave_linked_frame_carries_window():
 
 
 def test_wave_linked_small_blocks_via_device_path():
-    # engine="split" on a linked 64 KB frame routes through the wave
-    # kernel (_decode_linked_split) — block-final short pieces share
-    # their wave with the next block's pieces.
+    # engine="split" on a linked 64 KB frame: one region, back-references
+    # across block boundaries.
     raw = mixed_corpus(500000, seed=9)
     cfg = lz4.FrameConfig(block_size=65536, block_independence=False)
     frame = np.asarray(lz4.compress(raw, config=cfg))
@@ -93,7 +84,7 @@ def test_wave_dictionary_window_both_modes():
 
 
 def test_wave_default_4mb_config():
-    # The reference's default block size — one block, multiple waves.
+    # The reference's default block size — two regions.
     raw = mixed_corpus(4_500_000, seed=13)
     cfg = lz4.FrameConfig(block_size=4194304, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
@@ -102,8 +93,8 @@ def test_wave_default_4mb_config():
 
 
 def test_wave_stored_blocks_inline():
-    # Incompressible data stores blocks verbatim; stored pieces ride the
-    # wave as pure literal copies from the wire image.
+    # Incompressible data stores blocks verbatim; stored blocks decode as
+    # pure literal records over their own bytes.
     rng = np.random.default_rng(17)
     raw = rng.integers(0, 256, 600000, dtype=np.uint8)
     raw[100000:140000] = 65  # one compressible island between stored spans
@@ -117,53 +108,27 @@ def test_wave_window_reset_between_independent_blocks():
     # Identical content in consecutive independent blocks: the encoder may
     # not reference across the boundary and the decoder must reset — a
     # carried window would still decode right, so assert the plan itself
-    # marks a reset at every block's first wave.
+    # gives every block its own region.
     raw = np.tile(mixed_corpus(BS, seed=19), 3)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
     hdr, blocks, _ = parse_block_index(frame)
-    plan = _plan_pieces(frame, blocks, hdr["block_max"])
-    planned = plan_waves(frame, plan, True, 0)
-    assert planned is not None
-    _, _, meta, totals, assign, _chunk = planned
-    # every chain's first wave (and only those) resets its way's window
-    assert int(meta[:, :, 2].sum()) == len(blocks)
-    for way, g0, _n in assign:
-        assert meta[g0, way, 2] == 1
+    plan = plan_regions(frame, blocks, hdr["block_max"])
+    assert len(plan.meta) == len(blocks)
+    np.testing.assert_array_equal(plan.meta[:, 3], [BS] * 3)
     out = waves_decode(frame)
     np.testing.assert_array_equal(out, raw)
 
 
-def test_wave_ways_interleave_multiblock():
-    """>= 4 independent blocks run WAYS interleaved chains in one
-    dispatch; mixed compressible/stored content, bit-exact, and the plan
-    actually widens past one way."""
+def test_bigblocks_mixed_stored_and_short_tail():
+    """Compressible, stored and short-tail blocks in one dispatch."""
     parts = [mixed_corpus(BS, seed=s) for s in (31, 32, 35)]
     rng = np.random.default_rng(33)
     parts.append(rng.integers(0, 256, BS, np.uint8))  # stored block
     parts.append(mixed_corpus(70000, seed=34))  # short tail block
-    import jax.numpy as jnp
-
-    from divortio_lz4_tpu.ops.wave_decode import decode_chain_waves
-
     raw = np.concatenate(parts)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    hdr, blocks, _ = parse_block_index(frame)
-    plan = _plan_pieces(frame, blocks, hdr["block_max"])
-    planned = plan_waves(frame, plan, True, 0, max_ways=4)
-    assert planned is not None
-    wire, recs, meta, totals, assign, chunk = planned
-    assert meta.shape[1] >= 2  # ways widened on opt-in
-    out = np.asarray(decode_chain_waves(
-        jnp.asarray(wire), jnp.asarray(recs), jnp.asarray(meta),
-        jnp.asarray(np.zeros(65536, np.uint8)), True, chunk=chunk))
-    got = np.concatenate(
-        [out[way, g0 + k][: int(totals[g0 + k, way])]
-         for way, g0, n in assign for k in range(n)])
-    np.testing.assert_array_equal(got, raw)
-    # production default stays serial (measured faster; see plan_waves)
-    assert plan_waves(frame, plan, True, 0)[2].shape[1] == 1
     np.testing.assert_array_equal(waves_decode(frame), raw)
 
 
@@ -172,21 +137,19 @@ def test_wave_linked_plan_has_single_reset():
     cfg = lz4.FrameConfig(block_size=BS, block_independence=False)
     frame = np.asarray(lz4.compress(raw, config=cfg))
     hdr, blocks, _ = parse_block_index(frame)
-    plan = _plan_pieces(frame, blocks, hdr["block_max"])
-    planned = plan_waves(frame, plan, False, 0)
-    assert planned is not None
-    _, _, meta, _totals, assign, _chunk = planned
-    assert meta.shape[1] == 1  # linked = one chain = one way
-    assert int(meta[:, :, 2].sum()) == 1  # seed once, chain through
+    plan = plan_regions(frame, blocks, hdr["block_max"], False)
+    assert len(plan.meta) == 1  # linked = one region, window carried
+    assert plan.total == len(raw)
+    np.testing.assert_array_equal(waves_decode(frame), raw)
 
 
 # -------------------------------------------------------------- fallbacks --
 
-def test_wave_giant_rle_returns_none_and_device_falls_back():
+def test_giant_rle_sequence_decodes():
+    """One sequence whose output spans a whole 1 MB block (a zero run)."""
     raw = np.zeros(1048576 + 1000, np.uint8)
     cfg = lz4.FrameConfig(block_size=1048576, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    assert waves_decode(frame) is None  # piece > wave capacity
     out = device_decompress_frame(frame, engine="split")
     np.testing.assert_array_equal(out, raw)
 
@@ -199,23 +162,16 @@ def _dense_sequence_block(n_seq: int) -> bytes:
     return b"".join(parts)
 
 
-def test_wave_record_overflow_returns_none_and_device_falls_back():
-    # ~3.2 sequences per 16 output bytes would be fine; this stream packs
-    # one record per 5 output bytes -> a 256 KB wave needs ~52K records,
-    # over MAX_WAVE_RECS. plan_waves declines; the device path still
-    # decodes bit-exact via the XLA fallback.
-    n_seq = (WAVE_CHUNK // 5) + 1000
-    assert n_seq > MAX_WAVE_RECS
+def test_dense_record_block_decodes():
+    """One record per 5 output bytes across a 1 MB block (the densest
+    stream a block can hold) decodes bit-exact."""
+    n_seq = 262144 // 5 + 1000
     blk = _dense_sequence_block(n_seq)
     out_len = n_seq * 5 + 5
     raw = np.asarray(lz4.decompress_raw(np.frombuffer(blk, np.uint8),
                                         out_len))
     cfg = lz4.FrameConfig(block_size=1048576, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    hdr, blocks, _ = parse_block_index(frame)
-    plan = _plan_pieces(frame, blocks, hdr["block_max"])
-    if plan is not None and plan_waves(frame, plan, True, 0) is None:
-        assert waves_decode(frame) is None
     out = device_decompress_frame(frame, engine="split")
     np.testing.assert_array_equal(out, raw)
 
@@ -223,9 +179,10 @@ def test_wave_record_overflow_returns_none_and_device_falls_back():
 def test_wave_empty_frame():
     frame = np.asarray(lz4.compress(b""))
     hdr, blocks, _ = parse_block_index(frame)
+    out = device_decompress_frame(frame, engine="split")
+    assert len(out) == 0
     if blocks:  # encoder may emit a zero-length frame body instead
-        out = decompress_frame_waves(frame, blocks, hdr, None)
-        assert out is None or len(out) == 0
+        assert len(waves_decode(frame)) == 0
 
 
 # ------------------------------------------------------- cross-validation --
@@ -236,14 +193,16 @@ def test_wave_matches_pallas_engine():
     frame = np.asarray(lz4.compress(raw, config=cfg))
     a = device_decompress_frame(frame, engine="split")
     b = device_decompress_frame(frame, engine="pallas")
+    c = device_decompress_frame(frame, engine="xla")
     np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(a, c)
     np.testing.assert_array_equal(a, raw)
 
 
-@pytest.mark.skipif("jax.default_backend() != 'tpu'")
-def test_wave_real_tpu_parity():
-    """Hardware parity marker (VERDICT r3 #6): the compiled Mosaic wave
-    kernel must match the host tier bit-exactly on the default config."""
+@pytest.mark.gpu
+def test_wave_gpu_parity():
+    """The compiled kernel on the card, at the default config and on a
+    linked frame, matches the input bytes."""
     raw = mixed_corpus(4_500_000, seed=31)
     cfg = lz4.FrameConfig(block_size=4194304, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
@@ -253,6 +212,3 @@ def test_wave_real_tpu_parity():
         block_size=BS, block_independence=False)))
     out2 = device_decompress_frame(linked, engine="split")
     np.testing.assert_array_equal(np.asarray(out2), raw[:1_000_000])
-
-
-import jax  # noqa: E402,F401  (the TPU-parity skipif marker evaluates it)

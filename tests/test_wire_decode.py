@@ -1,33 +1,33 @@
-"""Wire-direct split decode (round-4 v2 path, ops/pallas_split_decode):
-the kernel reads literal slices straight from the compressed bytes, so the
-link ships 1x wire. Covers: bit-exactness vs the host tier, the v2 record
-contract (native parser == Python fallback == sequential simulation),
-dictionary history, stored blocks, batched interleave grouping, error
+"""Region decode (ops/gpu_decode): the kernel reads literal slices
+straight from the compressed bytes. Covers: bit-exactness vs the host tier,
+the record contract (native parser == Python fallback == sequential
+simulation), dictionary history, stored blocks, batched dispatch, error
 taxonomy, and hostile-record containment.
 
 Reference semantics: /root/reference/src/block/blockDecompress.js:61-268.
 """
 
-import jax  # noqa: F401  (the TPU-parity skipif marker evaluates it)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import divortio_lz4_tpu as lz4
-from divortio_lz4_tpu.ops.block_ref import compress_block_ref
-from divortio_lz4_tpu.ops.pallas_split_decode import (
+import divortio_lz4 as lz4
+from divortio_lz4.ops.block_ref import compress_block_ref
+from divortio_lz4.ops.gpu_decode import (
     W,
+    Plan,
     _parse_records2_py,
-    build_sorted_batch,
-    decode_blocks_wire,
-    decode_wire_blocks2,
+    decode_blocks,
+    decode_regions,
+    dispatch,
+    padded_inputs,
     parse_records_wire,
-    parse_wire_batch,
-    plan_ways_wire,
+    plan_regions,
     stored_wire_records,
 )
 
 try:
-    from divortio_lz4_tpu.native import parse_records2_native
+    from divortio_lz4.native import parse_records2_native
 except Exception:
     parse_records2_native = None
 
@@ -109,106 +109,40 @@ def test_wire_kernel_bit_exact(name, rng, compressible):
     comp = np.asarray(lz4.compress_raw(data))
     if len(comp) >= len(data):
         pytest.skip("stored-class block")
-    out = decode_wire_blocks2([comp], max(len(data), 1))[0]
+    out = decode_blocks([comp], max(len(data), 1))[0]
     np.testing.assert_array_equal(out, data)
 
 
-def test_partition_by_plan_tiers():
-    """One dense block must not cap the whole batch's interleave: the
-    sorted order splits into maximal same-plan runs covering every
-    block exactly once, caps are monotone, and each part's cap bounds
-    its counts."""
-    from divortio_lz4_tpu.ops.pallas_split_decode import (
-        _cap_bucket, partition_by_plan, plan_ways_wire)
-
-    counts = np.array([900, 5000, 1200, 9000, 4800, 700, 3000, 2000],
-                      np.int32)
-    order = np.argsort(counts, kind="stable")
-    io_bytes = 66560
-    parts = partition_by_plan(counts, order, 2, 52224, io_bytes, 0)
-    got = np.concatenate([sel for sel, _, _ in parts])
-    np.testing.assert_array_equal(np.sort(got), np.arange(len(counts)))
-    prev_cap = 0
-    for sel, cap, ways in parts:
-        assert cap >= prev_cap and cap % 128 == 0
-        prev_cap = cap
-        assert ways == plan_ways_wire(cap, 2, 52224, io_bytes, 0)
-        for b in sel:
-            assert _cap_bucket(int(counts[b]) + 1) <= cap
-    # the dense 9000-record block must sit in its own lower-ways tier
-    ways_of = {int(b): w for sel, _, w in parts for b in sel}
-    assert ways_of[3] < ways_of[0]
-
-
-def test_partitioned_dispatch_ways_respects_plan(rng):
-    """Regression (review find): per-tier wire narrowing must not let
-    decode_blocks_wire replan a WIDER interleave than the partition's —
-    trips grouped for ways=2 applied at ways=4 silently truncated the
-    record loop. 256 KB blocks (wide records): 8 well-compressed blocks
-    (small wire) + 1 dense block (large wire) put the tier plan and the
-    narrowed-wire replan on different ways."""
-    from divortio_lz4_tpu.ops.pallas_split_decode import (
-        SLACK, _round_up, partition_by_plan)
-
-    bs = 262144
-    blocks = []
-    for s in range(8):
-        # varying block lengths -> varying record counts (records split
-        # matches at 128 B, so count ~ len/128), so trips grouped for
-        # one ways differ under another grouping
-        n = 32768 * (s + 1)
-        pat = rng.integers(0, 256, 1024, np.uint8)
-        blocks.append(np.tile(pat, -(-n // 1024))[:n])
-    # 16-symbol noise: compressible (not stored) but wire ~229 KB, so the
-    # light tier's plan (global wire, VMEM-bound ways=2) diverges from a
-    # replan on its own narrow wire (ways=4)
-    blocks.append(rng.integers(0, 16, bs).astype(np.uint8) * 13)
+@pytest.mark.parametrize("lengths", [
+    (32768, 65536, 98304, 131072, 163840, 196608, 229376, 262144),
+    (262144, 4096, 200000)])
+def test_wide_blocks_varied_lengths_one_dispatch(lengths, rng):
+    """256 KB blocks of varied output length (and so varied record
+    counts) decode bit-exact in one dispatch, a dense noise block
+    among them."""
+    blocks = [np.tile(rng.integers(0, 256, 1024, np.uint8),
+                      -(-n // 1024))[:n] for n in lengths]
+    blocks.append(rng.integers(0, 16, 262144).astype(np.uint8) * 13)
     comps = [np.asarray(lz4.compress_raw(b)) for b in blocks]
-    assert all(len(c) < bs for c in comps)
-    # precondition: the plan divergence this test guards actually exists
-    wire, recs, counts, out_lens, _ = parse_wire_batch(
-        [(c, False) for c in comps], bs)
-    rw = 2 if recs.dtype == np.uint16 else 3
-    io = _round_up(bs + SLACK, 1024)
-    order = np.argsort(counts, kind="stable")
-    wire_w = np.array([len(c) for c in comps])
-    diverged = False
-    for sel, cap, ways in partition_by_plan(counts, order, rw,
-                                            wire.shape[1], io, 0):
-        wcap = _round_up(int(wire_w[sel].max()) + SLACK, 1024)
-        diverged |= plan_ways_wire(cap, rw, wcap, io, 0) != ways
-    assert diverged
-    outs = decode_wire_blocks2(comps, bs)
-    for o, b in zip(outs, blocks):
+    assert all(len(c) < len(b) for c, b in zip(comps, blocks))
+    for o, b in zip(decode_blocks(comps, 262144), blocks):
         np.testing.assert_array_equal(o, b)
 
 
-@pytest.mark.parametrize("pair", [2, 4])
-def test_wire_kernel_paired_records_bit_exact(pair, rng, compressible):
-    """pair>1 runs `pair` records per way per loop iteration; the odd-count
-    overhang reads zero-pad records which must write nothing."""
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("split", [1, 3])
+def test_regions_any_order_bit_exact(split, rng, compressible):
+    """Regions are independent: the same blocks decode identically
+    whatever regions share a dispatch."""
     cases = _cases(rng, compressible)
     blocks = [v for v in cases.values()
               if len(np.asarray(lz4.compress_raw(v))) < len(v)]
-    bs = max(len(b) for b in blocks)
     comps = [np.asarray(lz4.compress_raw(b)) for b in blocks]
-    wire, recs, counts, out_lens, _ = parse_wire_batch(
-        [(c, False) for c in comps], bs)
-    rw = 2 if recs.dtype == np.uint16 else 3
-    io_bytes = ((bs + 256 + 1023) // 1024) * 1024
-    ways = plan_ways_wire(recs.shape[1], rw, wire.shape[1], io_bytes, 0)
-    order_p, trips = build_sorted_batch(counts, ways)
-    out = np.asarray(decode_blocks_wire(
-        jnp.asarray(wire[order_p]), jnp.asarray(recs[order_p]),
-        jnp.asarray(trips), bs, False, None, True, pair))
-    pos = {}
-    for k, b in enumerate(order_p):
-        pos.setdefault(int(b), k)
-    for i, b in enumerate(blocks):
-        np.testing.assert_array_equal(
-            out[pos[i]][: int(out_lens[i])], b)
+    bs = max(len(b) for b in blocks)
+    outs = []
+    for k in range(0, len(comps), split):
+        outs += decode_blocks(comps[k: k + split], bs)
+    for o, b in zip(outs, blocks):
+        np.testing.assert_array_equal(o, b)
 
 
 def test_wire_kernel_batched_sorted_groups(rng, compressible):
@@ -217,16 +151,14 @@ def test_wire_kernel_batched_sorted_groups(rng, compressible):
               if len(np.asarray(lz4.compress_raw(v))) < len(v)]
     bs = max(len(b) for b in blocks)
     comps = [np.asarray(lz4.compress_raw(b)) for b in blocks]
-    outs = decode_wire_blocks2(comps, bs)
+    outs = decode_blocks(comps, bs)
     for o, b in zip(outs, blocks):
         np.testing.assert_array_equal(o, b)
 
 
 def test_wire_kernel_history(compressible):
-    """Back-references into a dictionary window resolve through the seeded
-    history rows."""
-    import jax.numpy as jnp
-
+    """Back-references into a dictionary window resolve through the
+    history input."""
     data = np.asarray(compressible(70000))
     hist, plain = data[:30000], data[30000:]
     table = np.zeros(16384, np.int32)
@@ -234,25 +166,10 @@ def test_wire_kernel_history(compressible):
     n = compress_block_ref(data, dst, len(hist), len(plain), table, 0)
     comp = dst[:n]
     win = hist[-W:]
-    wire, recs, counts, out_lens, hrows = parse_wire_batch(
-        [(comp, False)], len(plain), win)
-    assert hrows is not None
-    rw = 2 if recs.dtype == np.uint16 else 3
-    io_bytes = ((W + len(plain) + 256 + 1023) // 1024) * 1024
-    ways = plan_ways_wire(recs.shape[1], rw, wire.shape[1], io_bytes, W)
-    padn = (-1) % ways
-    if padn:
-        wire = np.concatenate(
-            [wire, np.zeros((padn,) + wire.shape[1:], np.uint8)])
-        recs = np.concatenate(
-            [recs, np.zeros((padn,) + recs.shape[1:], recs.dtype)])
-        hrows = np.concatenate([hrows, np.zeros((padn, W), np.uint8)])
-    trips = np.array([int(counts.max(initial=0))], np.int32)
-    out = decode_blocks_wire(jnp.asarray(wire), jnp.asarray(recs),
-                             jnp.asarray(trips), len(plain), True,
-                             jnp.asarray(hrows), True)
-    np.testing.assert_array_equal(np.asarray(out)[0][: int(out_lens[0])],
-                                  plain)
+    plan = plan_regions(comp, [(0, len(comp), False)], len(plain), True,
+                        len(win))
+    out = np.asarray(dispatch(plan, win))[: plan.total]
+    np.testing.assert_array_equal(out, plain)
 
 
 def test_stored_wire_records_roundtrip(rng):
@@ -277,30 +194,25 @@ def test_wire_parser_error_taxonomy():
 
 
 def test_wire_kernel_hostile_records_contained(rng):
-    """Garbage records (huge dst/ll/ml/offset/src) must stay inside the
-    refs: the kernel clamps and cannot crash or write out of the io
-    region. Output content is unspecified for hostile input."""
-    import jax.numpy as jnp
-
-    bs = 4096
-    wire = np.zeros((1, 2048), np.uint8)
-    recs = rng.integers(0, 1 << 16, (1, 128, 3)).astype(np.uint16)
-    ways = plan_ways_wire(128, 2, 2048, 5120, 0)
-    if ways > 1:
-        wire = np.concatenate(
-            [wire, np.zeros((ways - 1, 2048), np.uint8)])
-        recs = np.concatenate(
-            [recs, np.zeros((ways - 1, 128, 3), np.uint16)])
-    trips = np.array([128], np.int32)
-    out = decode_blocks_wire(jnp.asarray(wire), jnp.asarray(recs),
-                             jnp.asarray(trips), bs, False, None, True)
-    assert np.asarray(out).shape == (ways, bs)  # completed, in bounds
+    """Garbage records (huge src/ll/ml/offset) must stay inside the
+    buffers: the kernel clamps, cannot crash, and writes no more than its
+    region's declared length."""
+    wire = rng.integers(0, 256, 2048, np.uint8)
+    recs = rng.integers(0, 2**32, (128, 2), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    meta = np.array([[0, 128, 0, 4096]], np.int32)
+    m, r, w, h, out_len = padded_inputs(Plan(wire, recs, meta, 4096))
+    out = np.asarray(decode_regions(jnp.asarray(m), jnp.asarray(r),
+                                    jnp.asarray(w), jnp.asarray(h),
+                                    out_len))
+    assert out.shape == (out_len,)  # completed, in bounds
+    assert not out[4096:].any()  # nothing past the region
 
 
 def test_wire_frame_path_engine_split(compressible):
     """device_decompress_frame(engine='split') rides the v2 path end to
     end, stored blocks included."""
-    from divortio_lz4_tpu.parallel.device import (device_compress_frame,
+    from divortio_lz4.parallel.device import (device_compress_frame,
                                                   device_decompress_frame)
 
     rng = np.random.default_rng(7)
@@ -310,32 +222,29 @@ def test_wire_frame_path_engine_split(compressible):
         np.asarray(compressible(50000)),
     ])
     cfg = lz4.FrameConfig(block_size=65536, block_independence=True)
-    frame = device_compress_frame(data, cfg, engine="hybrid")
+    frame = device_compress_frame(data, cfg, engine="split")
     out = device_decompress_frame(frame, engine="split")
     np.testing.assert_array_equal(out, data)
 
 
 def test_wire_frame_path_dictionary(compressible):
-    from divortio_lz4_tpu.parallel.device import (device_compress_frame,
+    from divortio_lz4.parallel.device import (device_compress_frame,
                                                   device_decompress_frame)
 
     data = np.asarray(compressible(100000))
     d = np.asarray(compressible(30000))
     cfg = lz4.FrameConfig(block_size=65536, block_independence=True)
-    frame = device_compress_frame(data, cfg, dictionary=d, engine="hybrid")
+    frame = device_compress_frame(data, cfg, dictionary=d, engine="split")
     out = device_decompress_frame(frame, engine="split", dictionary=d)
     np.testing.assert_array_equal(out, data)
 
 
-@pytest.mark.skipif("jax.default_backend() != 'tpu'")
-def test_wire_kernel_tpu_parity(compressible):
-    """Hardware-gated Mosaic parity: compiled kernel == interpret-mode
-    reference on real TPU (VERDICT r3 #6 marker; interpret-vs-Mosaic
-    divergence burned rounds 1-2)."""
+@pytest.mark.gpu
+def test_wire_kernel_gpu_parity(compressible):
+    """The compiled region kernel on the card matches the input bytes."""
     data = np.asarray(compressible(200000))
     bs = 65536
     comps = [np.asarray(lz4.compress_raw(data[i * bs:(i + 1) * bs]))
              for i in range(3)]
-    outs = decode_wire_blocks2(comps, bs, interpret=False)
-    for i, o in enumerate(outs):
+    for i, o in enumerate(decode_blocks(comps, bs)):
         np.testing.assert_array_equal(o, data[i * bs:(i + 1) * bs])

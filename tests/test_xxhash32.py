@@ -7,7 +7,7 @@ the streaming equivalence suite xxhash32Stateful.test.mjs:18-79.
 import numpy as np
 import pytest
 
-from divortio_lz4_tpu import XXHash32, xxhash32
+from divortio_lz4 import XXHash32, xxhash32
 
 
 def test_empty_vector():
