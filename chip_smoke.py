@@ -22,8 +22,9 @@ frame is also decoded by the native host tier, and the compressed size is
 held to the native encoder's (ratio <= 1.0) in (a), (c) and (d). The
 kernel phase runs the region decode kernel (ops/gpu_decode) and the plain
 XLA decode on the same blocks, compares both with the input, and times
-them, device time and end to end by route. Any failure exits non-zero before the last line is printed; the last
-line is one JSON object naming the device.
+them, device time and end to end by route. Any failure exits non-zero
+before the last line is printed; the last line is one JSON object naming
+the device.
 """
 
 import argparse

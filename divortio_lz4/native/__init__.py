@@ -14,7 +14,6 @@ import ctypes
 import os
 import subprocess
 import tempfile
-import threading
 
 import numpy as np
 
@@ -88,12 +87,6 @@ _lib.lz4t_decompress_frame_body_mt.argtypes = [
     ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-    ctypes.POINTER(ctypes.c_int64)]
-
-_lib.lz4t_parse_records2.restype = ctypes.c_int64
-_lib.lz4t_parse_records2.argtypes = [
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
     ctypes.POINTER(ctypes.c_int64)]
 
 _lib.lz4t_parse_records2_batch.restype = ctypes.c_int64
@@ -238,43 +231,6 @@ def decompress_frame_body_native(buf: np.ndarray, pos: int, n: int,
     return rc, int(wire_end.value)
 
 
-def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):
-    """Record parse for the region decode kernel (see lz4t_parse_records2):
-    records copy literal slices straight from the compressed bytes, so
-    the device transfer ships 1x wire. Returns (recs u32[nrec, 2], out_len)
-    where recs[k] = (src, offset | ll<<16 | ml<<24); the record's output
-    position is the running sum of (ll+ml). Raises the host error taxonomy
-    on malformed streams."""
-    src = np.ascontiguousarray(src, dtype=np.uint8)
-    n = len(src)
-    # Bound: <= 1 combined + lit chunks + 7 doubling + far chunks per
-    # sequence (>= 3 wire bytes each); full 128-byte chunks are also
-    # bounded by out_cap // 128 overall. Every record writes >= 1 output
-    # byte, so out_cap bounds the count too.
-    cap = min((n // 3 + 1) * 9 + out_cap // 128, out_cap) + 8
-    recs = _scratch(cap)
-    out_len = ctypes.c_int64(0)
-    rc = int(_lib.lz4t_parse_records2(
-        _ptr(src), n, out_cap, _ptr(recs), cap, dict_len,
-        ctypes.byref(out_len)))
-    if rc < 0:
-        raise ValueError(_ERRORS.get(rc, "LZ4: Malformed Input"))
-    return recs[:rc].copy(), int(out_len.value)
-
-
-_tls = threading.local()
-
-
-def _scratch(cap: int) -> np.ndarray:
-    """Per-thread record scratch, reused across calls: a fresh
-    worst-case-sized array per block costs a map, page faults and an
-    unmap each time, which dominated parsing small blocks."""
-    buf = getattr(_tls, "recs", None)
-    if buf is None or len(buf) < cap:
-        buf = _tls.recs = np.empty((cap, 2), np.uint32)
-    return buf
-
-
 def parse_records2_batch_native(buf: np.ndarray, offs: np.ndarray,
                                 sizes: np.ndarray, stored: np.ndarray,
                                 out_cap: int, dict_len: int,
@@ -305,6 +261,16 @@ def parse_records2_batch_native(buf: np.ndarray, offs: np.ndarray,
     finally:
         _lib.lz4t_free(out)
     return recs, counts, lens
+
+
+def parse_records2_native(src: np.ndarray, out_cap: int, dict_len: int = 0):
+    """One block through lz4t_parse_records2_batch: (recs u32[n, 2],
+    out_len), recs[k] = (src, offset | ll<<16 | ml<<24); the record's
+    output position is the running sum of (ll+ml)."""
+    recs, _, lens = parse_records2_batch_native(
+        src, np.zeros(1, np.int64), np.array([len(src)], np.int64),
+        np.zeros(1, np.uint8), out_cap, dict_len, True)
+    return recs, int(lens[0])
 
 
 def chain_serialize16_native(work: np.ndarray, hist_len: int, src_len: int,

@@ -706,172 +706,10 @@ int64_t lz4t_decompress_frame_body_mt(const uint8_t* __restrict buf,
   return result_pos;
 }
 
-// Split a block's sequence stream at sequence boundaries into pieces each
-// producing >= target output bytes (except the last). O(wire) length
-// arithmetic only — the device big-block decode path feeds the pieces to
-// the chained Pallas kernel (parallel/bigblock.py). Returns the piece
-// count, ERR_MALFORMED on truncated length runs / zero offsets, or -6 when
-// max_pieces would overflow.
-int64_t lz4t_scan_pieces(const uint8_t* src, int64_t src_len, int64_t target,
-                         int64_t* wire_off, int64_t* wire_len,
-                         int64_t* out_len, int64_t max_pieces) {
-  int64_t p = 0, o = 0, ps = 0, po = 0, np_ = 0;
-  while (p < src_len) {
-    uint32_t tok = src[p++];
-    int64_t lit = tok >> 4;
-    if (lit == 15) {
-      uint32_t v;
-      do {
-        if (p >= src_len) return ERR_MALFORMED;
-        v = src[p++];
-        lit += v;
-      } while (v == 255);
-    }
-    if (p + lit > src_len) return ERR_MALFORMED;
-    p += lit;
-    o += lit;
-    if (p >= src_len) break;  // trailing-literals sequence ends the stream
-    if (p + 2 > src_len) return ERR_MALFORMED;
-    uint32_t off = (uint32_t)src[p] | ((uint32_t)src[p + 1] << 8);
-    if (off == 0) return ERR_OFFSET0;
-    p += 2;
-    int64_t ml = tok & 15;
-    if (ml == 15) {
-      uint32_t v;
-      do {
-        if (p >= src_len) return ERR_MALFORMED;
-        v = src[p++];
-        ml += v;
-      } while (v == 255);
-    }
-    o += ml + 4;
-    if (o - po >= target && p < src_len) {
-      if (np_ >= max_pieces - 1) return -6;
-      wire_off[np_] = ps;
-      wire_len[np_] = p - ps;
-      out_len[np_] = o - po;
-      np_++;
-      ps = p;
-      po = o;
-    }
-  }
-  wire_off[np_] = ps;
-  wire_len[np_] = p - ps;
-  out_len[np_] = o - po;
-  return np_ + 1;
-}
-
-// Parse one block's sequence stream into (a) a PLACED-LITERAL image of the
-// output (literal bytes memcpy'd to their final output offsets; match gaps
-// left untouched) and (b) match records for a 128-lane copy kernel:
-// recs[2k] = offset | (mlen << 16),
-// recs[2k+1] = dst (output byte offset of the match).
-//
-// This is the round-3 decode split: the O(wire) serial parse and the
-// bandwidth-bound literal placement run here at host memcpy speed; the
-// device kernel does ONLY 128-lane match copies (the actual serial
-// dependency out[j] = out[j-offset]).
-//
-// RECORD CONTRACT (a copy kernel whose body is straight-line: NO
-// in-kernel periodize loop, NO chunk loop):
-//   * every record has mlen <= 128 AND its full source range already
-//     written when it executes (records run in array order);
-//   * far matches (offset >= 128) longer than 128 split into 128-byte
-//     records — record k's source ends at dst+128k+128-offset <= dst+128k,
-//     written by records < k;
-//   * overlap matches (offset < 128) whose source lies inside the
-//     materialized suffix (this sequence's literals, or a contiguous run
-//     of host-materialized bytes before them) are MATERIALIZED here — the
-//     byte loop below IS LZ4 overlap propagation; RLE and periodic intros
-//     emit no records at all;
-//   * remaining overlap matches become LOG-DOUBLING chains: copy `offset`
-//     bytes at offset, then 2*offset at 2*offset, ... — each record's
-//     source is complete when it runs, and offsets reach >= 128 in
-//     log2(128/offset) records, after which the tail splits as far
-//     matches (period multiples keep out[j] = out[j-k*offset] valid).
-//
-// Validation matches lz4t_decompress_block (reference semantics
-// blockDecompress.js:55-272, same error taxonomy). Returns the record
-// count, or a negative error code.
-int64_t lz4t_parse_records(const uint8_t* src, int64_t src_len, uint8_t* lit,
-                           int64_t out_cap, uint32_t* recs, int64_t rec_cap,
-                           int64_t dict_len, int64_t* out_len_out) {
-  int64_t p = 0, o = 0, nrec = 0;
-  int64_t mat_start = 0;  // start of the contiguous materialized suffix
-  while (p < src_len) {
-    uint32_t token = src[p++];
-    int64_t lit_len = token >> 4;
-    if (lit_len == 15) {
-      uint32_t b;
-      do {
-        if (p >= src_len) return ERR_MALFORMED;
-        b = src[p++];
-        lit_len += b;
-      } while (b == 255);
-    }
-    if (o + lit_len > out_cap) return ERR_OUTPUT_SMALL;
-    if (p + lit_len > src_len) return ERR_MALFORMED;
-    if (lit_len) std::memcpy(lit + o, src + p, (size_t)lit_len);
-    o += lit_len;
-    p += lit_len;
-    if (p >= src_len) break;  // trailing-literals sequence
-
-    if (p + 2 > src_len) return ERR_MALFORMED;
-    int64_t offset = src[p] | (src[p + 1] << 8);
-    p += 2;
-    if (offset == 0) return ERR_OFFSET0;
-    if (offset > o + dict_len) return ERR_DICT_OOB;
-
-    int64_t match_len = token & 0x0F;
-    if (match_len == 15) {
-      uint32_t b;
-      do {
-        if (p >= src_len) return ERR_MALFORMED;
-        b = src[p++];
-        match_len += b;
-      } while (b == 255);
-    }
-    match_len += MIN_MATCH;
-    if (o + match_len > out_cap) return ERR_OUTPUT_SMALL;
-
-    if (offset < 128 && o - offset >= mat_start) {
-      // Host-materialized overlap propagation (source is host-known).
-      for (int64_t t = 0; t < match_len; t++) lit[o + t] = lit[o + t - offset];
-      o += match_len;
-      continue;  // suffix stays contiguous
-    }
-    int64_t off = offset, rem = match_len;
-    while (off < 128 && rem > 0) {
-      // Doubling chain: copy `off` bytes at offset `off`, then double.
-      int64_t take = rem < off ? rem : off;
-      if (nrec >= rec_cap) return -6;
-      recs[2 * nrec] = (uint32_t)off | ((uint32_t)take << 16);
-      recs[2 * nrec + 1] = (uint32_t)o;
-      nrec++;
-      o += take;
-      rem -= take;
-      off *= 2;
-    }
-    while (rem > 0) {
-      int64_t take = rem < 128 ? rem : 128;
-      if (nrec >= rec_cap) return -6;
-      recs[2 * nrec] = (uint32_t)off | ((uint32_t)take << 16);
-      recs[2 * nrec + 1] = (uint32_t)o;
-      nrec++;
-      o += take;
-      rem -= take;
-    }
-    mat_start = o;  // device-copied bytes break the materialized suffix
-  }
-  *out_len_out = o;
-  return nrec;
-}
-
-// Record parser for the region decode kernel (ops/gpu_decode.py).
-// Unlike lz4t_parse_records above, NO literal image is built: literal bytes
-// stay in the compressed stream (the "wire image" the kernel receives), so
-// the device transfer ships 1x compressed bytes instead of a placed
-// plaintext image. Each record covers up to 128 CONTIGUOUS output bytes —
+// Record parser for the region decode kernel (ops/gpu_decode.py). No
+// literal image is built: literal bytes stay in the compressed stream (the
+// "wire image" the kernel receives), so the device transfer ships 1x
+// compressed bytes. Each record covers up to 128 CONTIGUOUS output bytes —
 // a slice of a literal run copied from the wire plus (optionally) a match
 // copy from prior output:
 //
@@ -1111,89 +949,14 @@ int64_t lz4t_parse_records2_batch(const uint8_t* buf, int64_t nblocks,
 void lz4t_free(void* p) { std::free(p); }
 
 // Greedy selection + exact extension + serialization over a device-built
-// candidate chain (ops/split_encode.py "chain-direct" encode). chain[a] =
-// (m << 16) | dist packs, for every payload position a, the FIRST
-// matchable position m >= a (u16; 0xFFFF = none) and its match distance —
-// the XLA sort phase's reverse cummin (ops/hybrid_encode.build_chains).
-// This loop IS the hybrid Pallas walk's semantics run at host speed:
-// anchor -> chain[anchor] -> anchor + exact_extension, so the wire is
-// byte-identical to engine="hybrid". The device does the exhaustive
-// candidate search (the expensive part); this does O(sequences) selection
-// at memcpy-class speed. work points at [history | payload]; chain
-// entries are payload-relative. Returns bytes written.
-int64_t lz4t_chain_serialize(const uint8_t* work, int64_t hist_len,
-                             int64_t src_len, const int32_t* chain,
-                             uint8_t* out) {
-  const int64_t mf_limit = src_len - MF_LIMIT;
-  const int64_t match_limit = src_len - LAST_LITERALS;
-  const uint8_t* pay = work + hist_len;
-  int64_t o = 0, d = 0;
-  if (src_len > 0 && mf_limit > 0) {
-    uint32_t e = (uint32_t)chain[0];
-    int64_t m = (e >> 16) & 0xFFFF, dist = e & 0xFFFF;
-    while (m < mf_limit) {
-      // exact extension (first MIN_MATCH bytes equal by construction)
-      int64_t len = MIN_MATCH;
-      const uint8_t* a = pay + m;
-      const uint8_t* b = a - dist;
-      const int64_t lim = match_limit - m;
-      while (len + 8 <= lim) {
-        uint64_t x, y;
-        std::memcpy(&x, a + len, 8);
-        std::memcpy(&y, b + len, 8);
-        if (x != y) {
-          len += __builtin_ctzll(x ^ y) >> 3;
-          goto emit;
-        }
-        len += 8;
-      }
-      while (len < lim && a[len] == b[len]) len++;
-    emit:;
-      int64_t lit = m - o;
-      int64_t mcode = len - MIN_MATCH;
-      out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4
-                           | (mcode < 15 ? mcode : 15));
-      if (lit >= 15) {
-        int64_t rem = lit - 15;
-        while (rem >= 255) { out[d++] = 255; rem -= 255; }
-        out[d++] = (uint8_t)rem;
-      }
-      std::memcpy(out + d, pay + o, (size_t)lit);
-      d += lit;
-      out[d++] = (uint8_t)(dist & 0xFF);
-      out[d++] = (uint8_t)(dist >> 8);
-      if (mcode >= 15) {
-        int64_t rem = mcode - 15;
-        while (rem >= 255) { out[d++] = 255; rem -= 255; }
-        out[d++] = (uint8_t)rem;
-      }
-      o = m + len;
-      e = (uint32_t)chain[o];  // o <= match_limit < cap
-      m = (e >> 16) & 0xFFFF;
-      dist = e & 0xFFFF;
-    }
-  }
-  int64_t lit = src_len - o;
-  out[d++] = (uint8_t)((lit < 15 ? lit : 15) << 4);
-  if (lit >= 15) {
-    int64_t rem = lit - 15;
-    while (rem >= 255) { out[d++] = 255; rem -= 255; }
-    out[d++] = (uint8_t)rem;
-  }
-  std::memcpy(out + d, pay + o, (size_t)lit);
-  return d + lit;
-}
-
-// u16 dist-only variant of lz4t_chain_serialize (round 4): the device
+// candidate chain (ops/split_encode.py "chain-direct" encode): the device
 // ships ONLY a u16 match distance per payload position (0 = no candidate;
-// ops/hybrid_encode.build_dist_chains) — half the device->host bytes and
-// no reverse-cummin pass on device. The next matchable position is found
-// here by scanning for the next nonzero distance (8-byte strides — a
-// memchr-class pass over memory the selector walks anyway). Selection,
-// exact extension, and emission are identical to lz4t_chain_serialize, so
-// the wire bytes are identical too on exact chains.
+// ops/hybrid_encode.build_dist_chains). The next matchable position is
+// found here by scanning for the next nonzero distance (8-byte strides — a
+// memchr-class pass over memory the selector walks anyway), then the match
+// is exactly extended and emitted at memcpy-class speed.
 //
-// Round-4 sort diet: the production chain phase sorts a HASHED window key
+// Sort diet: the production chain phase sorts a HASHED window key
 // (ops/hybrid_encode, hashed=True), so a candidate's first 4 bytes are no
 // longer equal by construction — a hash collision can claim a false match.
 // The 4-byte verify below rejects those (skip to the next nonzero), the
@@ -1203,8 +966,7 @@ int64_t lz4t_chain_serialize(const uint8_t* work, int64_t hist_len,
 // Core with optional splice meta (meta[4] = trailing-token position,
 // trailing literal count, last-MATCH-sequence stream offset (-1 if none),
 // its payload-relative output anchor (-1) — the big-block segment
-// splicer's contract, same lanes the hybrid Pallas walk emits at
-// ops/hybrid_encode.py "Meta row").
+// splicer's contract, parallel/bigblock.py).
 static inline int64_t chain_ser16_core(const uint8_t* work,
                                        int64_t hist_len, int64_t src_len,
                                        const uint16_t* dist16, uint8_t* out,

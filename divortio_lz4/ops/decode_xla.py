@@ -3,7 +3,8 @@
 The reference decoder is a byte-serial sequence interpreter
 (/root/reference/src/block/blockDecompress.js:55-272). An accelerator has
 wide vector units and no fast scalar byte loop, so this kernel re-derives the
-SAME wire semantics as data-parallel passes (SURVEY §7 Phase 1, "two-phase decode"):
+SAME wire semantics as data-parallel passes (SURVEY §7 Phase 1, "two-phase
+decode"):
 
 Phase A — token-graph parse.
   For EVERY input byte position i, speculatively compute "if a sequence

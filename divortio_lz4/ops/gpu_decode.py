@@ -49,7 +49,8 @@ SPAN = 128  # output bytes a record covers at most (one 128-lane copy)
 def _parse_records2_py(src: np.ndarray, out_cap: int, dict_len: int = 0):
     """Pure-Python fallback for lz4t_parse_records2 (same record contract).
 
-    Returns (recs u32[n, 2], out_len); record = (src, off | ll<<16 | ml<<24)."""
+    Returns (recs u32[n, 2], out_len); a record is
+    (src, off | ll<<16 | ml<<24)."""
     cb = src.tolist()
     n = len(cb)
     p = o = 0
@@ -264,7 +265,8 @@ def _make_kernel(interpret: bool):
             plgpu.store(out_ref.at[jnp.clip(start + dst + t, 0, omax)], val,
                         mask=t < tot)
             if not interpret:
-                # the interpreter runs lanes in order; the card does not
+                # the next record may read these bytes; the interpreter
+                # runs records in order (and has no barrier rule)
                 plgpu.debug_barrier()
             return dst + tot
 
@@ -340,7 +342,7 @@ def dispatch(plan: Plan, window=None) -> jax.Array:
 
 
 def decode_frame_body(buf: np.ndarray, blocks, block_max: int,
-                      independent: bool, window=None) -> jax.Array:
+                      independent: bool, window=None):
     """Queue the decode of a frame body (blocks from parse_block_index):
     one region per independent block, or one region for a linked frame.
     Returns (device output, plaintext length)."""
@@ -356,7 +358,7 @@ def decode_blocks(comps, block_size: int):
     buf = (np.concatenate([np.asarray(c, np.uint8) for c in comps])
            if comps else np.empty(0, np.uint8))
     offs = np.cumsum(sizes) - np.array(sizes, np.int64)
-    plan = plan_regions(buf, [(int(o), s, False) for o, s in zip(offs, sizes)],
-                        block_size)
+    plan = plan_regions(
+        buf, [(int(o), s, False) for o, s in zip(offs, sizes)], block_size)
     out = np.asarray(dispatch(plan))
     return [out[s: s + n] for s, n in zip(plan.meta[:, 2], plan.meta[:, 3])]

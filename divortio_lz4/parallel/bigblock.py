@@ -126,17 +126,14 @@ def _encode_segments(work: np.ndarray, lens: np.ndarray,
     """Chain-direct encode of segment rows: device scored chains
     (build_dist_chains, u16 dist wire) + native host
     select/extend/serialize — the same engine as the 64 KB frame path; the
-    host tail overlaps the next chunk's device work. Returns (outs u8[nrows, OW], out_lens i64, meta i64[nrows, 4]) with
+    host tail overlaps the next chunk's device work. Returns
+    (outs u8[nrows, OW], out_lens i64, meta i64[nrows, 4]) with
     the splice meta lanes: trailing-token position, trailing literal
     count, last-match-sequence stream offset, last-match output anchor
     (lz4t_chain_serialize16m)."""
-    import jax.numpy as jnp
-
     from ..constants import block_bound
-    from ..ops.hybrid_encode import build_dist_chains
     from ..ops.split_encode import chain_select_serialize_meta
 
-    CH = 32
     nrows, rowlen = work.shape
     # queue every chunk's chain dispatch before fetching any (fetch of
     # chunk k overlaps chunks k+1.. on device); the multi-frame path

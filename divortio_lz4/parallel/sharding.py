@@ -10,8 +10,8 @@ plaintext immediately before it — known from the input — so every block
 carries its window as a per-row history slice and the serial chain
 disappears (no cross-device traffic needed; better than the tail-window
 ppermute pipeline sketched in SURVEY §2.6 because there is no step
-dependency at all). Linked DECODE is truly sequential (block i's window is block i-1's
-OUTPUT) and runs as one region on one device.
+dependency at all). Linked DECODE is truly sequential (block i's window is
+block i-1's OUTPUT) and runs on one device.
 
 On one host this also expresses multi-host SPMD: under
 jax.distributed.initialize each process holds its local shard of the global

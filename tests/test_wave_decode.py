@@ -21,7 +21,7 @@ from divortio_lz4.parallel.device import (
 
 from conftest import make_compressible
 
-BS = 262144  # smallest big-block tier — same wave machinery as 1 MB/4 MB
+BS = 262144  # smallest big-block tier — same route as 1 MB/4 MB
 
 
 def mixed_corpus(n: int, seed: int = 3) -> np.ndarray:
@@ -33,7 +33,7 @@ def mixed_corpus(n: int, seed: int = 3) -> np.ndarray:
     return out
 
 
-def waves_decode(frame: np.ndarray, dictionary=None):
+def region_decode(frame: np.ndarray, dictionary=None):
     hdr, blocks, _ = parse_block_index(frame)
     window = None
     if dictionary is not None:
@@ -49,7 +49,7 @@ def test_wave_independent_bigblocks():
     raw = mixed_corpus(900000)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    out = waves_decode(frame)
+    out = region_decode(frame)
     np.testing.assert_array_equal(out, raw)
 
 
@@ -58,7 +58,7 @@ def test_wave_linked_frame_carries_window():
     raw = mixed_corpus(700000, seed=7)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=False)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    out = waves_decode(frame)
+    out = region_decode(frame)
     np.testing.assert_array_equal(out, raw)
 
 
@@ -100,7 +100,7 @@ def test_wave_stored_blocks_inline():
     raw[100000:140000] = 65  # one compressible island between stored spans
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    out = waves_decode(frame)
+    out = region_decode(frame)
     np.testing.assert_array_equal(out, raw)
 
 
@@ -116,7 +116,7 @@ def test_wave_window_reset_between_independent_blocks():
     plan = plan_regions(frame, blocks, hdr["block_max"])
     assert len(plan.meta) == len(blocks)
     np.testing.assert_array_equal(plan.meta[:, 3], [BS] * 3)
-    out = waves_decode(frame)
+    out = region_decode(frame)
     np.testing.assert_array_equal(out, raw)
 
 
@@ -129,7 +129,7 @@ def test_bigblocks_mixed_stored_and_short_tail():
     raw = np.concatenate(parts)
     cfg = lz4.FrameConfig(block_size=BS, block_independence=True)
     frame = np.asarray(lz4.compress(raw, config=cfg))
-    np.testing.assert_array_equal(waves_decode(frame), raw)
+    np.testing.assert_array_equal(region_decode(frame), raw)
 
 
 def test_wave_linked_plan_has_single_reset():
@@ -140,7 +140,7 @@ def test_wave_linked_plan_has_single_reset():
     plan = plan_regions(frame, blocks, hdr["block_max"], False)
     assert len(plan.meta) == 1  # linked = one region, window carried
     assert plan.total == len(raw)
-    np.testing.assert_array_equal(waves_decode(frame), raw)
+    np.testing.assert_array_equal(region_decode(frame), raw)
 
 
 # -------------------------------------------------------------- fallbacks --
@@ -182,7 +182,7 @@ def test_wave_empty_frame():
     out = device_decompress_frame(frame, engine="split")
     assert len(out) == 0
     if blocks:  # encoder may emit a zero-length frame body instead
-        assert len(waves_decode(frame)) == 0
+        assert len(region_decode(frame)) == 0
 
 
 # ------------------------------------------------------- cross-validation --
