@@ -597,10 +597,10 @@ def device_decompress_frame(data, verify_checksum: bool = True,
 
 
 # Largest block the split route decodes with the region kernel (one program
-# per block). Measured on an H100 (PERF.md): at <= 1 MB blocks the kernel
-# beats the XLA decode on the same blocks; at 4 MB a frame has too few
-# blocks to fill the card and the XLA decode wins, as it does for a linked
-# frame (a single region).
+# per block). Measured end to end on an H100 (PERF.md): the kernel wins at
+# 64 KB and 256 KB blocks on both corpora and at 1 MB on the mixed one; at
+# 4 MB a frame has too few blocks to fill the card and the XLA decode wins,
+# as it does for a linked frame (a single region).
 REGION_KERNEL_MAX_BLOCK = 1 << 20
 
 
